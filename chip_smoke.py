@@ -1,4 +1,4 @@
-"""Drives the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -6,15 +6,29 @@ Phases (each raises on failure; the script then exits non-zero and
 prints no result line):
 
 1. build the port's CUDA kernels from ``deepspeed_tpu_torch/csrc``;
-2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and time kernel, plain version, one PyTorch
-   library call computing the same attention (a yardstick only), and the
-   least time the card could take (the bound);
+2. hold each serving kernel against its plain PyTorch version on the
+   card at the serving path's shapes, and time kernel, plain version, one
+   PyTorch library call computing the same attention (a yardstick only),
+   and the least time the card could take (the bound);
 3. serve GPT-2 XL at full width (random weights from seed 0, bf16) with
    the continuous-batching engine on the kernel backends, and show that
    both kernels launched;
 4. at full width in fp32, hold every served request's greedy tokens
-   against the one-shot ``generate()`` on the same backend.
+   against the one-shot ``generate()`` on the same backend;
+5. hold the three flash-attention kernels (forward, dq, dk/dv/dbias)
+   against their plain versions at the BERT-large training shapes (bf16
+   and fp32, padded keys, causal, a block-16 sparse layout with an empty
+   row, dropout 0.1 on the same Philox bits), and time them as phase 2
+   does, with ``scaled_dot_product_attention`` and its backward as the
+   yardsticks;
+6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
+   ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
+   dropout 0.1) on one repeated random batch, show that all three flash
+   kernels launched, that every loss is finite and that the loss falls,
+   and profile one step;
+7. at BERT-large width with 2 layers in fp32 and dropout 0.1, hold the
+   loss and every parameter's gradient on the kernels against the same
+   model with the plain attention versions swapped in.
 
 The line before the last is the kernels' JSON, with the card's name and
 power limit printed before it; the last line is the run's JSON result.
@@ -45,6 +59,7 @@ NEW_TOKENS = 32
 # sides do the same fp32 math on the same pages and scales, so they differ
 # by at most one bf16 step of the rounded output (2**-7 relative).
 TOL = {"fp32": (1e-5, 1e-5), "bf16": (2e-2, 2e-2), "int8": (1e-3, 2.0 ** -7)}
+SERVING_KERNELS = ("decode_attention", "sparse_attention")
 
 
 def card_info():
@@ -240,35 +255,41 @@ def _drive(eng):
     return outs, impls, pass_
 
 
-def _profile(eng):
-    """Device time by kernel over one admission (all prefills) and over 8
-    decode steps of the same traffic, and the device's busy share of each
-    window's host wall time."""
+def _profiled(fn):
+    """Run ``fn`` under the profiler: the window's host wall time, device
+    time by kernel (names cut to 90 characters, times summed), the
+    device's busy share of the wall time, and host self time by op."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:90]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                busy_share=busy / wall_us if wall_us else None, kernels=len(by_name),
+                top_ms={k: v / 1e3 for k, v in top},
+                # host self time by op under the profiler (which inflates it)
+                top_host_self_ms={a.key[:90]: a.self_cpu_time_total / 1e3 for a in host})
+
+
+def _profile(eng):
+    """Device time by kernel over one admission (all prefills) and over 8
+    decode steps of the same traffic."""
     for p in _prompts():
         eng.submit(p, max_new_tokens=NEW_TOKENS)
     out = {}
     for window, steps in (("admission_step", 1), ("decode_8_steps", 8)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=acts) as prof:
-            for _ in range(steps):
-                eng.step()
-            torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        by_name = {}   # kernel names cut to 90 characters, times summed
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name[:90]
-                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        out[window] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                           busy_share=busy / wall_us if wall_us else None,
-                           kernels=len(by_name),
-                           top_ms={k: v / 1e3 for k, v in top})
+        out[window] = _profiled(lambda: [eng.step() for _ in range(steps)])
     eng.drain()
     return out
 
@@ -286,6 +307,7 @@ def phase_serve():
     for out in outs:
         if len(out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in out):
             raise RuntimeError(f"bad served output {out}")
+    counts = {k: counts[k] for k in SERVING_KERNELS}
     if min(counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {counts}")
     res = dict(model="gpt2_xl bf16 (seed 0), kv bf16, 8 slots, max_seq_len 1024",
@@ -349,6 +371,267 @@ def phase_oracle():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: the flash-attention kernels (phase 5), BERT-large through
+# initialize() (phase 6), and the gradient oracle (phase 7)
+# ---------------------------------------------------------------------------
+
+FB, FH, FS, FD = 64, 16, 128, 64           # BERT-large training shapes (B, heads, S, D)
+FLASH_SEED = 4321
+# kernel vs plain version, relative to the compared tensor's largest
+# magnitude (at least 1). fp32: the same fp32 math summed in another order.
+# bf16: both round p and ds to bf16 at the same points, but a different
+# summation order can flip a rounding, and outputs are rounded to bf16.
+FLASH_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+FLASH_MAIN_CASE = "bf16 padded dropout0.1"
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+
+
+def _check_rel(name, got, want, tol):
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if not torch.isfinite(got.float()).all() or err > tol * scale:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version (max abs err "
+                           f"{err:.3e}, allowed {tol} x {scale:.3g})")
+    return err
+
+
+def _flash_work(lut, counts, qlut, qcounts, block, causal, elem):
+    """Bytes and (query, key) pairs the three kernels need for these
+    inputs: every visited query or key block read once (q, dO, lse and
+    delta rows; k and v rows), outputs written once; a pair counts where
+    its key block is on the query block's LUT row and, when causal,
+    key <= query."""
+    lut, counts = lut.cpu().numpy(), counts.cpu().numpy()
+    qcounts = qcounts.cpu().numpy()
+    pairs = 0
+    for h in range(lut.shape[0]):
+        for qi in range(lut.shape[1]):
+            for kj in lut[h, qi, :counts[h, qi]]:
+                if not causal or kj < qi:
+                    pairs += block * block
+                elif kj == qi:
+                    pairs += block * (block + 1) // 2
+    pairs *= FB
+    q_rows = FB * int((counts > 0).sum()) * block
+    k_rows = FB * int((qcounts > 0).sum()) * block
+    all_rows = FB * FH * FS
+    row = FD * elem
+    bias = FB * FS * 4
+    fwd = (q_rows + 2 * k_rows) * row + bias + all_rows * (row + 4)
+    dq = (2 * q_rows) * row + q_rows * 8 + 2 * k_rows * row + bias + all_rows * row
+    dkv = (2 * k_rows) * row + bias + 2 * q_rows * row + q_rows * 8 + all_rows * (2 * row + 4)
+    return dict(fwd=(fwd, 4 * FD * pairs), dq=(dq, 6 * FD * pairs), dkv=(dkv, 8 * FD * pairs))
+
+
+def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
+               sparse=False):
+    """Kernels 1-3 against their plain versions on one input set, with
+    times, bounds and the SDPA yardsticks."""
+    from deepspeed_tpu_torch.ops.transformer import attention as fa
+
+    dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
+    block = 16 if sparse else fa.DEFAULT_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(3000 + sum(map(ord, label)))
+    q, k, v, do = (torch.randn(FB, FH, FS, FD, generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    bias = torch.zeros(FB, FS, device="cuda")
+    if padded:   # about a fifth of each row's keys padded away (key 0 kept)
+        pad = torch.rand(FB, FS, generator=gen, device="cuda") < 0.2
+        pad[:, 0] = False
+        bias = torch.where(pad, -10000.0, 0.0)
+    layout = None
+    if sparse:
+        nb = FS // block
+        layout = (np.random.RandomState(5).rand(FH, nb, nb) < 0.5).astype(np.int64)
+        layout[:, :, 0] = 1
+        layout[0, 1, :] = 0          # head 0, query block 1 sees no key
+    lut, counts, qlut, qcounts = fa._device_luts(layout, FH, FS, block, q.device)
+    kw = dict(block=block, causal=causal, rate=rate, seed=FLASH_SEED)
+    pkw = (block, causal, rate, FLASH_SEED)
+    tol = FLASH_TOL[dtype_name]
+
+    out, lse = fa.flash_fwd(q, k, v, bias, lut, counts, **kw)
+    out_p, lse_p = fa._flash_fwd_torch(q, k, v, bias, lut, counts, *pkw)
+    errs = dict(out=_check_rel(f"{label} out", out, out_p, tol),
+                lse=_check_rel(f"{label} lse", lse, lse_p, FLASH_TOL["fp32"]))
+    delta = (do.float() * out_p.float()).sum(-1).reshape(FB * FH, FS)
+    bwd_in = (q, k, v, bias, do, lse_p, delta)
+    dq = fa.flash_bwd_dq(*bwd_in, lut, counts, **kw)
+    dq_p = fa._flash_bwd_dq_torch(*bwd_in, lut, counts, *pkw)
+    errs["dq"] = _check_rel(f"{label} dq", dq, dq_p, tol)
+    dkv = fa.flash_bwd_dkv(*bwd_in, qlut, qcounts, **kw)
+    dkv_p = fa._flash_bwd_dkv_torch(*bwd_in, qlut, qcounts, *pkw)
+    for name, got, want in zip(("dk", "dv", "db"), dkv, dkv_p):
+        errs[name] = _check_rel(f"{label} {name}", got, want, tol)
+    if sparse and float(out[:, 0, block:2 * block].abs().max()) != 0.0:
+        raise RuntimeError(f"{label}: the empty row's output is not 0")
+
+    calls = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, bias, lut, counts, **kw),
+                lambda: fa._flash_fwd_torch(q, k, v, bias, lut, counts, *pkw)),
+        "dq": (lambda: fa.flash_bwd_dq(*bwd_in, lut, counts, **kw),
+               lambda: fa._flash_bwd_dq_torch(*bwd_in, lut, counts, *pkw)),
+        "dkv": (lambda: fa.flash_bwd_dkv(*bwd_in, qlut, qcounts, **kw),
+                lambda: fa._flash_bwd_dkv_torch(*bwd_in, qlut, qcounts, *pkw)),
+    }
+    # yardstick: SDPA over the same keys (the layout and the causal mask as
+    # an additive mask; its dropout draws other bits), and its backward
+    mask = bias[:, None, None, :]
+    if sparse:
+        dense = fa._expand_layout_mask(layout, FS, block).to("cuda")
+        mask = mask + torch.where(dense, 0.0, -10000.0)[None]
+    if causal:
+        tril = torch.ones(FS, FS, dtype=torch.bool, device="cuda").tril()
+        mask = mask + torch.where(tril, 0.0, -10000.0)
+    mask = mask.to(dt)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
+    lib_fwd = timer(sdpa)
+    o_lib = sdpa()
+    lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
+    work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size())
+    res = {}
+    for kind, (kern, plain) in calls.items():
+        bound_ms, bound_by = _bound(*work[kind], dt)
+        res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
+                         library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return dict(case=label, block=block, causal=causal, dropout=rate, tol=tol,
+                max_abs_err=errs, kernels=res)
+
+
+def _bert_batch(cfg, batch, seq, seed=0):
+    """Random ids with 15 % MLM labels and NSP labels, as bench.py makes them."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq))
+    labels = np.where(rng.rand(batch, seq) < 0.15,
+                      rng.randint(0, cfg.vocab_size, (batch, seq)), -1)
+    nsp = rng.randint(0, 2, (batch,))
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.long, device="cuda")
+    return (as_t(ids), as_t(np.zeros((batch, seq))), as_t(np.ones((batch, seq))),
+            as_t(labels), as_t(nsp))
+
+
+def phase_train():
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.BertConfig.bert_large(checkpoint_policy="dots")
+    model = dt.init_bert(cfg, seed=0, device="cuda")
+    ds_config = {"train_batch_size": FB, "train_micro_batch_size_per_gpu": FB,
+                 "gradient_accumulation_steps": 1,
+                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+                 "activation_checkpointing": {"enabled": True}, "steps_per_print": 1000}
+    engine, _, _, _ = dt.initialize(model=model, config=ds_config)
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    batch = _bert_batch(cfg, FB, FS)
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(float(engine.train_step([batch])))
+    torch.cuda.reset_peak_memory_stats()
+    dt.kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [engine.train_step([batch]) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dt.kernels.launch_counts()
+    losses += [float(x) for x in timed]
+    flash = {k: counts[k] for k in FLASH_KERNELS}
+    if min(flash.values()) <= 0:
+        raise RuntimeError(f"a flash kernel never launched on the training path: {flash}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall on a repeated batch: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _profiled(lambda: engine.train_step([batch]))
+    res = dict(model="bert_large (seed 0), bf16 + fp32 masters, Adam lr 1e-4, ZeRO 0, "
+                     "activation checkpointing 'dots', dropout 0.1/0.1",
+               params=n_params, micro_batch=FB, seq=FS, warmup_steps=TRAIN_WARMUP,
+               timed_steps=TRAIN_STEPS, step_ms=1e3 * wall / TRAIN_STEPS,
+               samples_per_s=FB * TRAIN_STEPS / wall, losses=losses, peak_mem_gb=peak,
+               launches=flash,
+               launches_per_step={k: v / TRAIN_STEPS for k, v in flash.items()},
+               profile_one_step=profile,
+               # the profiler slows the host, so its window's busy share
+               # understates the unprofiled step's
+               busy_share_of_step=profile["device_busy_ms"] / (1e3 * wall / TRAIN_STEPS))
+    del engine, model, timed
+    torch.cuda.empty_cache()
+    return res
+
+
+class _PlainAttention:
+    """Swap the three flash kernel wrappers for their plain versions while
+    active (the grad oracle's reference run)."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.transformer import attention as fa
+
+        plain = lambda fn: (lambda *a, block, causal, rate=0.0, seed=0:
+                            fn(*a, block, causal, rate, seed))
+        self.saved = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        fa.flash_fwd = plain(fa._flash_fwd_torch)
+        fa.flash_bwd_dq = plain(fa._flash_bwd_dq_torch)
+        fa.flash_bwd_dkv = plain(fa._flash_bwd_dkv_torch)
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.transformer import attention as fa
+
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = self.saved
+
+
+GRAD_TOL = 1e-4   # relative to each gradient's largest magnitude: fp32, same masks
+
+
+def phase_grad_oracle():
+    """BERT-large width, 2 layers, fp32, dropout 0.1, activation
+    checkpointing "dots": loss and every grad on the kernels against the
+    plain attention versions, at the same dropout seed (the same Philox
+    masks and the same hidden-dropout generators)."""
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.BertConfig.bert_large(num_hidden_layers=2, checkpoint_activations=True,
+                                   checkpoint_policy="dots")
+    model = dt.init_bert(cfg, seed=0, device="cuda")
+    batch = _bert_batch(cfg, 8, FS, seed=1)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = model(*batch, dropout_seed=77)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    before = dt.kernels.launch_counts()
+    loss, grads = run()
+    after = dt.kernels.launch_counts()
+    if any(after[k] <= before[k] for k in FLASH_KERNELS):
+        raise RuntimeError("the kernel run of the grad oracle launched no flash kernel")
+    with _PlainAttention():
+        loss_p, grads_p = run()
+    worst = 0.0
+    for name, g in grads.items():
+        want = grads_p[name]
+        err = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= GRAD_TOL:
+            raise RuntimeError(f"grad of {name} differs from the plain run by {err:.3e} "
+                               f"of its max (tolerance {GRAD_TOL})")
+    if abs(loss - loss_p) > GRAD_TOL * abs(loss_p):
+        raise RuntimeError(f"loss {loss} differs from the plain run's {loss_p}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(model="bert_large width, 2 layers, fp32, dropout 0.1, remat dots",
+                batch=8, seq=FS, loss=loss, loss_plain=loss_p, params=len(grads),
+                worst_rel_grad_err=worst, tol=GRAD_TOL)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the results here (JSON)")
@@ -378,6 +661,21 @@ def main():
     oracle = phase_oracle()
     print("oracle", json.dumps(oracle), flush=True)
 
+    flash_cases = [
+        flash_case(timer, "bf16 padded", "bf16"),
+        flash_case(timer, "fp32 padded", "fp32"),
+        flash_case(timer, "bf16 causal", "bf16", causal=True, padded=False),
+        flash_case(timer, "bf16 block16 sparse empty-row", "bf16", sparse=True),
+        flash_case(timer, FLASH_MAIN_CASE, "bf16", rate=0.1),
+        flash_case(timer, "fp32 causal dropout0.1", "fp32", causal=True, rate=0.1),
+    ]
+    for c in flash_cases:
+        print("flash_case", json.dumps(c), flush=True)
+    trained = phase_train()
+    print("train", json.dumps(trained), flush=True)
+    grad_oracle = phase_grad_oracle()
+    print("grad_oracle", json.dumps(grad_oracle), flush=True)
+
     entries = []
     for name, cases, main_case in (("decode_attention", decode_cases, "C=1 pages=bf16"),
                                    ("sparse_attention", band_cases, "N=8 bf16")):
@@ -390,11 +688,24 @@ def main():
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             main_case=main_case, cases=cases))
+    rep = next(c for c in flash_cases if c["case"] == FLASH_MAIN_CASE)
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv", "db")}
+    for name, kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
+        source, replaces = registry.KERNEL_SOURCES[name]
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=trained["launches"][name],
+            max_abs_err=max(c["max_abs_err"][o] for c in flash_cases for o in outputs[kind]),
+            **rep["kernels"][kind], main_case=FLASH_MAIN_CASE,
+            library_call=("scaled_dot_product_attention" if kind == "fwd" else
+                          "scaled_dot_product_attention backward (dq, dk, dv together)")))
     card = card_info()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=entries, serve=served, oracle=oracle,
-                           torch=torch.__version__, cuda=torch.version.cuda), f,
+                           flash_cases=flash_cases, train=trained,
+                           grad_oracle=grad_oracle, torch=torch.__version__,
+                           cuda=torch.version.cuda), f,
                       indent=1)
     print(card)                  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}))

@@ -10,6 +10,11 @@ kernel's plain PyTorch version. Kernels:
   across a lane's page table; int8 pages consumed directly.
 - ``sparse_attention`` — banded sink+window attention, one query per
   block.
+
+The training path's three flash-attention kernels (forward, dq, dk/dv)
+live beside their plain versions in
+``deepspeed_tpu_torch/ops/transformer/attention.py``, where the JAX
+package keeps their Pallas counterparts; they are registered here too.
 """
 
 from deepspeed_tpu_torch.kernels.registry import (

@@ -28,11 +28,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # argtypes of every C entry: pointers and the stream as c_void_p (a plain
 # int would be cut to 32 bits), every entry returns cudaGetLastError()
 _SIGNATURES = {
     "ds_decode_attend": [_P] * 8 + [_I] * 8 + [_F, _P],
     "ds_band_attend": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q k v bias lut counts out lse | B H S D block maxn causal dtype |
+    # scale seed threshold keep_scale dropout stream
+    "ds_flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _U, _U, _F, _I, _P],
+    # q k v bias dout lse delta lut counts dq | ... as above
+    "ds_flash_bwd_dq": [_P] * 10 + [_I] * 8 + [_F, _U, _U, _F, _I, _P],
+    # q k v bias dout lse delta qlut qcounts dk dv db | ... as above
+    "ds_flash_bwd_dkv": [_P] * 12 + [_I] * 8 + [_F, _U, _U, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,8 @@ nowhere else), so a run can show that its main path went through the
 kernels.
 """
 
-KERNEL_NAMES = ("decode_attention", "sparse_attention")
+KERNEL_NAMES = ("decode_attention", "sparse_attention", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 # attention_impl backend name -> the kernel behind it
 KERNEL_BACKENDS = {"pallas_decode": "decode_attention",
@@ -23,6 +24,12 @@ KERNEL_SOURCES = {
                          "deepspeed_tpu/kernels/decode_attention.py:89"),
     "sparse_attention": ("deepspeed_tpu_torch/csrc/band_attention.cu",
                          "deepspeed_tpu/kernels/sparse_attention.py:68"),
+    "flash_attention_fwd": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
+                            "deepspeed_tpu/ops/transformer/attention.py:94"),
+    "flash_attention_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
+                               "deepspeed_tpu/ops/transformer/attention.py:204"),
+    "flash_attention_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
+                                "deepspeed_tpu/ops/transformer/attention.py:246"),
 }
 
 _launches = dict.fromkeys(KERNEL_NAMES, 0)

@@ -226,7 +226,9 @@ def test_cpu_engine_launches_no_kernel(models):
     kernels.reset_launch_counts()
     eng = _engine(model, cfg, attention_impl=MIXED)
     _serve_mixed_arrival(eng, PROMPTS[:2])
-    assert kernels.launch_counts() == {"decode_attention": 0, "sparse_attention": 0}
+    counts = kernels.launch_counts()
+    assert {"decode_attention", "sparse_attention"} <= set(counts)
+    assert counts == dict.fromkeys(kernels.KERNEL_NAMES, 0)
 
 
 def test_engine_rejects_unported_and_tpu_knobs(models):
