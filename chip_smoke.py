@@ -7,9 +7,14 @@ prints no result line):
 
 1. build the port's CUDA kernels from ``deepspeed_tpu_torch/csrc``;
 2. hold each serving kernel against its plain PyTorch version on the
-   card at the serving path's shapes, and time kernel, plain version, one
-   PyTorch library call computing the same attention (a yardstick only),
-   and the least time the card could take (the bound);
+   card at the serving path's shapes (decode, a two-query chunk, a chunk
+   that is no multiple of the query tile, a 512-token prefill chunk; fp32,
+   bf16 and int8 pages; and, untimed, head dim 128 with 48-token pages and
+   head dim 64 with 5-token pages), and time kernel, plain version, one PyTorch
+   library call computing the same attention (a yardstick only), and the
+   least time the card could take (the bound); then show bit for bit that
+   a query's output does not depend on the batch, the table width or the
+   chunk around it;
 3. serve GPT-2 XL at full width (random weights from seed 0, bf16) with
    the continuous-batching engine on the kernel backends, and show that
    both kernels launched;
@@ -18,9 +23,9 @@ prints no result line):
 5. hold the three flash-attention kernels (forward, dq, dk/dv/dbias)
    against their plain versions at the BERT-large training shapes (bf16
    and fp32, padded keys, causal, a block-16 sparse layout with an empty
-   row, dropout 0.1 on the same Philox bits), and time them as phase 2
-   does, with ``scaled_dot_product_attention`` and its backward as the
-   yardsticks;
+   row, dropout 0.1 on the same Philox bits; head dims 128 and 32 and
+   longer sequences in blocks of 64 and 32 once each), and time them as phase 2 does, with
+   ``scaled_dot_product_attention`` and its backward as the yardsticks;
 6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
    ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
    dropout 0.1) on one repeated random batch, show that all three flash
@@ -29,6 +34,9 @@ prints no result line):
 7. at BERT-large width with 2 layers in fp32 and dropout 0.1, hold the
    loss and every parameter's gradient on the kernels against the same
    model with the plain attention versions swapped in.
+
+``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad) while
+a kernel is being worked on; such a run prints no result line.
 
 The line before the last is the kernels' JSON, with the card's name and
 power limit printed before it; the last line is the run's JSON result.
@@ -74,7 +82,12 @@ def card_info():
 class Timer:
     """Median CUDA-event time of a callable, L2 flushed before each run
     (the serving step streams a layer's weights between two attention
-    calls, so the kernel finds the cache cold)."""
+    calls, so the kernel finds the cache cold). The card spins for about
+    a millisecond before the first event, so the host has enqueued the
+    callable's launches by the time the card reaches them and the events
+    bracket device time, not the host's time to launch."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self):
         self._flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -87,6 +100,7 @@ class Timer:
             self._flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start.record()
             fn()
             end.record()
@@ -113,9 +127,11 @@ def _bound(nbytes, ops, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_case(timer, C, kv):
-    from deepspeed_tpu_torch.kernels import decode_attention as da
-
+def _decode_inputs(C, kv, shape, padded_query=False):
+    """Queries, a page pool, shuffled page tables and positions for one
+    decode-kernel case; ``shape`` is (lanes, heads, head dim, page tokens,
+    pages per lane)."""
+    B, NH, HD, PT, MP = shape
     gen = torch.Generator(device="cuda").manual_seed(1000 + C)
     qdt = torch.float32 if kv == "fp32" else torch.bfloat16
     P = B * MP + 1
@@ -137,12 +153,43 @@ def decode_case(timer, C, kv):
         pk, pv = pk32.to(qdt), pv32.to(qdt)
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     tables = perm.reshape(B, MP).to(torch.int32)
-    if C == 1:   # decode: each lane at its own position
+    if C == 1:     # decode: each lane at its own position
         qpos = torch.randint(0, MP * PT, (B, 1), generator=gen, device="cuda")
-    else:        # a prefill chunk from position 0
+    elif C < 128:  # a short chunk somewhere in each lane's cache
+        start = torch.randint(0, MP * PT - C, (B, 1), generator=gen, device="cuda")
+        qpos = start + torch.arange(C, device="cuda")[None]
+    else:          # a prefill chunk from position 0
         qpos = torch.arange(C, device="cuda").expand(B, C)
     qpos = qpos.to(torch.int32).contiguous()
-    args = (q, pk, pv, tables, qpos, PT, qdt, ks, vs)
+    if padded_query:   # a query that sees no key: its output is 0
+        qpos[0, 0] = -1
+    return (q, pk, pv, tables, qpos, PT, qdt, ks, vs)
+
+
+# shapes the serving path does not use but the kernel takes: head dim 128,
+# pages that are no power of two (splits of several pages, a ragged last
+# split and key block), tiny pages; (lanes, heads, head dim, page tokens, pages)
+ODD_SHAPES = ((3, 4, 128, 48, 11), (2, 3, 64, 5, 60))
+
+
+def decode_odd_case(C, kv, shape):
+    """Kernel against plain version, and the bitwise invariance, at a
+    shape off the serving path (checked, not timed)."""
+    from deepspeed_tpu_torch.kernels import decode_attention as da
+
+    args = _decode_inputs(C, kv, shape, padded_query=C > 1)
+    label = f"C={C} pages={kv} shape={shape}"
+    err, _ = _check(f"decode_attention {label}", da._decode_attend_cuda(*args),
+                    da._decode_attend_torch(*args), TOL[kv])
+    return dict(case=label, max_abs_err=err, tol=TOL[kv],
+                invariance=decode_invariance(args, label))
+
+
+def decode_case(timer, C, kv):
+    from deepspeed_tpu_torch.kernels import decode_attention as da
+
+    args = _decode_inputs(C, kv, (B, NH, HD, PT, MP))
+    q, pk, pv, tables, qpos, _, qdt, ks, vs = args
     got = da._decode_attend_cuda(*args)
     want = da._decode_attend_torch(*args)
     err, out_absmax = _check(f"decode_attention C={C} {kv}", got, want, TOL[kv])
@@ -173,7 +220,44 @@ def decode_case(timer, C, kv):
     bound_ms, bound_by = _bound(nbytes, pairs * NH * 4 * HD, qdt)
     return dict(case=f"C={C} pages={kv}", max_abs_err=err, out_absmax=out_absmax,
                 tol=TOL[kv], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                invariance=decode_invariance(args, f"C={C} pages={kv}"))
+
+
+def decode_invariance(args, label):
+    """Bit for bit: every lane's output among the 8 lanes and the pool-wide
+    table equals its output alone (B = 1, a table of just the pages it
+    sees), and a chunk's rows equal the same rows of a wider chunk padded
+    with zero queries. Returns the number of comparisons made."""
+    from deepspeed_tpu_torch.kernels import decode_attention as da
+
+    q, pk, pv, tables, qpos, pt, qdt, ks, vs = args
+    B, C, NH, HD = q.shape
+    last = tables.shape[1] * pt - 1
+    full = da._decode_attend_cuda(*args)
+    checks = 0
+    for b in range(B):
+        pages = int(qpos[b].max()) // pt + 1
+        alone = da._decode_attend_cuda(q[b:b + 1].contiguous(), pk, pv,
+                                       tables[b:b + 1, :pages].contiguous(),
+                                       qpos[b:b + 1].contiguous(), pt, qdt, ks, vs)
+        if not torch.equal(alone[0], full[b]):
+            raise RuntimeError(f"decode_attention {label}: lane {b} alone differs from "
+                               f"lane {b} among {B} lanes")
+        checks += 1
+    if C > 1:
+        wide = C + 24
+        qw = torch.zeros(B, wide, NH, HD, dtype=q.dtype, device="cuda")
+        qw[:, :C] = q
+        extra = qpos[:, -1:] + 1 + torch.arange(wide - C, device="cuda", dtype=torch.int32)
+        qposw = torch.cat([qpos, extra.clamp(max=last)], dim=1).contiguous()
+        padded = da._decode_attend_cuda(qw, pk, pv, tables, qposw, pt, qdt, ks, vs)
+        if not torch.equal(padded[:, :C], full):
+            raise RuntimeError(f"decode_attention {label}: the chunk's rows differ inside "
+                               f"a chunk of {wide}")
+        checks += 1
+    torch.cuda.synchronize()
+    return checks
 
 
 def band_case(timer, N, dtype_name):
@@ -278,6 +362,8 @@ def _profiled(fn):
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 busy_share=busy / wall_us if wall_us else None, kernels=len(by_name),
                 top_ms={k: v / 1e3 for k, v in top},
+                # the port's own kernels, whatever their rank
+                own_ms={k: v / 1e3 for k, v in by_name.items() if "dstorch" in k},
                 # host self time by op under the profiler (which inflates it)
                 top_host_self_ms={a.key[:90]: a.self_cpu_time_total / 1e3 for a in host})
 
@@ -386,6 +472,9 @@ FLASH_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 FLASH_MAIN_CASE = "bf16 padded dropout0.1"
+# main-case times (ms) of the two kernels' earlier designs, on the same card
+# type at 700 W (PERF.md's kernel table), printed beside the new times
+PREVIOUS_MS = {"decode_attention": 0.180, "flash_attention_fwd": 0.426}
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
@@ -399,7 +488,7 @@ def _check_rel(name, got, want, tol):
     return err
 
 
-def _flash_work(lut, counts, qlut, qcounts, block, causal, elem):
+def _flash_work(lut, counts, qlut, qcounts, block, causal, elem, FD=FD, FB=FB, FS=FS):
     """Bytes and (query, key) pairs the three kernels need for these
     inputs: every visited query or key block read once (q, dO, lse and
     delta rows; k and v rows), outputs written once; a pair counts where
@@ -428,13 +517,13 @@ def _flash_work(lut, counts, qlut, qcounts, block, causal, elem):
 
 
 def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
-               sparse=False):
+               sparse=False, FD=FD, FB=FB, FS=FS, block=None):
     """Kernels 1-3 against their plain versions on one input set, with
     times, bounds and the SDPA yardsticks."""
     from deepspeed_tpu_torch.ops.transformer import attention as fa
 
     dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
-    block = 16 if sparse else fa.DEFAULT_BLOCK
+    block = 16 if sparse else block or fa.DEFAULT_BLOCK
     gen = torch.Generator(device="cuda").manual_seed(3000 + sum(map(ord, label)))
     q, k, v, do = (torch.randn(FB, FH, FS, FD, generator=gen, device="cuda").to(dt)
                    for _ in range(4))
@@ -493,14 +582,14 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     lib_fwd = timer(sdpa)
     o_lib = sdpa()
     lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
-    work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size())
+    work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size(), FD, FB, FS)
     res = {}
     for kind, (kern, plain) in calls.items():
         bound_ms, bound_by = _bound(*work[kind], dt)
         res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
                          library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                          bound_ms=bound_ms, bound_by=bound_by)
-    return dict(case=label, block=block, causal=causal, dropout=rate, tol=tol,
+    return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal, dropout=rate, tol=tol,
                 max_abs_err=errs, kernels=res)
 
 
@@ -587,6 +676,7 @@ class _PlainAttention:
         fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = self.saved
 
 
+PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad")
 GRAD_TOL = 1e-4   # relative to each gradient's largest magnitude: fp32, same masks
 
 
@@ -635,7 +725,12 @@ def phase_grad_oracle():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the results here (JSON)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %(default)s; a subset prints no result")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"--phases takes {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -650,31 +745,49 @@ def main():
           flush=True)
 
     timer = Timer()
-    decode_cases = [decode_case(timer, C, kv) for C in (1, 512)
-                    for kv in ("fp32", "bf16", "int8")]
-    band_cases = [band_case(timer, N, dt) for N in (8, 8 * PT) for dt in ("fp32", "bf16")]
-    for c in decode_cases + band_cases:
-        print("case", json.dumps(c), flush=True)
-
-    served = phase_serve()
-    print("serve", json.dumps(served), flush=True)
-    oracle = phase_oracle()
-    print("oracle", json.dumps(oracle), flush=True)
-
-    flash_cases = [
-        flash_case(timer, "bf16 padded", "bf16"),
-        flash_case(timer, "fp32 padded", "fp32"),
-        flash_case(timer, "bf16 causal", "bf16", causal=True, padded=False),
-        flash_case(timer, "bf16 block16 sparse empty-row", "bf16", sparse=True),
-        flash_case(timer, FLASH_MAIN_CASE, "bf16", rate=0.1),
-        flash_case(timer, "fp32 causal dropout0.1", "fp32", causal=True, rate=0.1),
-    ]
-    for c in flash_cases:
-        print("flash_case", json.dumps(c), flush=True)
-    trained = phase_train()
-    print("train", json.dumps(trained), flush=True)
-    grad_oracle = phase_grad_oracle()
-    print("grad_oracle", json.dumps(grad_oracle), flush=True)
+    if "kernels" in phases:
+        decode_cases = [decode_case(timer, C, kv) for C in (1, 2, 40, 512)
+                        for kv in ("fp32", "bf16", "int8")]
+        band_cases = [band_case(timer, N, dt) for N in (8, 8 * PT)
+                      for dt in ("fp32", "bf16")]
+        odd_cases = [decode_odd_case(C, kv, shape) for shape in ODD_SHAPES
+                     for C in (1, 5, 70) for kv in ("fp32", "bf16", "int8")]
+        for c in decode_cases + band_cases + odd_cases:
+            print("case", json.dumps(c), flush=True)
+    if "serve" in phases:
+        served = phase_serve()
+        print("serve", json.dumps(served), flush=True)
+    if "oracle" in phases:
+        oracle = phase_oracle()
+        print("oracle", json.dumps(oracle), flush=True)
+    if "flash" in phases:
+        flash_cases = [
+            flash_case(timer, "bf16 padded", "bf16"),
+            flash_case(timer, "fp32 padded", "fp32"),
+            flash_case(timer, "bf16 causal", "bf16", causal=True, padded=False),
+            flash_case(timer, "bf16 block16 sparse empty-row", "bf16", sparse=True),
+            flash_case(timer, FLASH_MAIN_CASE, "bf16", rate=0.1),
+            flash_case(timer, "fp32 causal dropout0.1", "fp32", causal=True, rate=0.1),
+            flash_case(timer, "bf16 D128 causal dropout0.1", "bf16", causal=True, rate=0.1,
+                       FD=128),
+            flash_case(timer, "bf16 D32 padded", "bf16", FD=32),
+            # several LUT blocks a row: the K/V ring runs with both stages
+            flash_case(timer, "bf16 S512 block64 causal dropout0.1", "bf16", causal=True,
+                       rate=0.1, FB=8, FS=512, block=64),
+            flash_case(timer, "bf16 S256 block32 padded", "bf16", FB=8, FS=256, block=32),
+        ]
+        for c in flash_cases:
+            print("flash_case", json.dumps(c), flush=True)
+    if "train" in phases:
+        trained = phase_train()
+        print("train", json.dumps(trained), flush=True)
+    if "grad" in phases:
+        grad_oracle = phase_grad_oracle()
+        print("grad_oracle", json.dumps(grad_oracle), flush=True)
+    if phases != set(PHASES):
+        print(card_info())
+        print(f"partial run ({sorted(phases)}): no result line")
+        return 0
 
     entries = []
     for name, cases, main_case in (("decode_attention", decode_cases, "C=1 pages=bf16"),
@@ -687,7 +800,9 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
-            main_case=main_case, cases=cases))
+            main_case=main_case,
+            cases=cases + (odd_cases if name == "decode_attention" else []),
+            **({"previous_ms": PREVIOUS_MS[name]} if name in PREVIOUS_MS else {})))
     rep = next(c for c in flash_cases if c["case"] == FLASH_MAIN_CASE)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv", "db")}
     for name, kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
@@ -697,6 +812,7 @@ def main():
             launches=trained["launches"][name],
             max_abs_err=max(c["max_abs_err"][o] for c in flash_cases for o in outputs[kind]),
             **rep["kernels"][kind], main_case=FLASH_MAIN_CASE,
+            **({"previous_ms": PREVIOUS_MS[name]} if name in PREVIOUS_MS else {}),
             library_call=("scaled_dot_product_attention" if kind == "fwd" else
                           "scaled_dot_product_attention backward (dq, dk, dv together)")))
     card = card_info()

@@ -21,23 +21,44 @@
 //
 // What bounds it on the H100: at the training shapes (S = 128, D = 64) each
 // (batch, head) reads 4 S x D tiles and does ~4 S^2 D flops per product, about
-// 32 flops per byte in bf16, far below the tensor cores' ridge (~295) but above
-// the fp32 CUDA cores' (~20). These kernels run every product on the CUDA cores
-// in fp32, so they are bound by fp32 operations; wgmma on bf16 tiles is the
-// next step.
+// 32 flops per byte in bf16, far below the tensor cores' ridge (~295): on the
+// tensor cores the forward is bound by bytes. On the fp32 CUDA cores (ridge
+// ~20) the same work is bound by operations; that is where the fp32 forward
+// and both backward kernels still run.
 //
-// Design. One block per (batch*head, LUT block): the TPU's sequential grid of
-// key blocks becomes a loop inside the block. D/32 neighbouring threads share a
+// Design of the bf16 forward (`flash_fwd_mma_kernel`). One block per
+// (batch*head, LUT block): the TPU's sequential grid of key blocks becomes a
+// loop inside the block. Each warp owns 16 query rows of the block
+// (block / 16 warps). Q, K, V tiles and the key bias arrive in shared memory
+// as they lie in device memory (bf16, cp.async, 16 bytes a thread) in rows
+// padded by 16 bytes, so the eight rows of an ldmatrix fall on all 32 banks;
+// with more than one LUT block the next block's K and V load into the second
+// stage under this block's products, and for the first block V is its own
+// copy group, so it lands under the QK product. S = Q K^T runs once per tile
+// on mma.sync.m16n8k16 (bf16 operands, fp32 accumulators: the TPU kernel's
+// "fp32 from input-dtype operands"), and the whole 16 x block score tile of a
+// warp stays in its accumulator registers: the row max, exp, the row sum, the
+// dropout mask and the rounding of p to bf16 happen on those fragments, and
+// the rounded p is the A operand of the PV product. The softmax updates once
+// per LUT block, so p is rounded against the same running max as in the TPU
+// kernel and the plain version. In an accumulator a thread holds two
+// neighbouring columns of rows r and r + 8, a Philox call gives four columns:
+// the lanes t, t^1 share a column quad, the even lane draws row r's call and
+// the odd lane row r + 8's, and they hand each other the two words the other
+// needs (`__shfl_xor` by 1): one call per lane per eight columns, the same
+// bits as before. The output goes back through the warp's rows of the Q tile
+// so that it is stored 16 bytes a thread.
+//
+// The fp32 forward and the backward kernels: D/32 neighbouring threads share a
 // query (or, in dk/dv, a key) row, each holding 32 of its D values in
 // registers as eight float4 chunks interleaved across the row's threads, so a
 // warp reads a staged tile row from shared memory as a broadcast without bank
 // conflicts; a dot product is the threads' partial sums reduced with shuffles.
 // The LUT block's keys (or, in dk/dv, queries) are staged in shared memory in
-// fp32. The forward walks each key block twice, once for the block's max and
-// once for p and the PV sum, so the softmax updates at the same granularity
-// (and rounds p at the same points) as the JAX kernel without storing a score
-// tile. dk/dv/db of a key block come from one block of threads: no atomics, and
-// the result does not depend on scheduling.
+// fp32. The fp32 forward walks each key block twice, once for the block's max
+// and once for p and the PV sum (it holds 1e-5, which TF32 cannot). dk/dv/db
+// of a key block come from one block of threads: no atomics, and the result
+// does not depend on scheduling.
 
 #include "common.cuh"
 
@@ -247,6 +268,240 @@ flash_fwd_kernel(const Params P) {
         alive ? m + logf(l) : kBig;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int BLOCK, int D>
+struct FwdLayout {
+  static constexpr int kStride = D + 8;  // bf16 per tile row, 16 bytes of padding
+  static constexpr int kTileBytes = BLOCK * kStride * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes + BLOCK * 4;  // K, V, bias
+  // Q tile | `stages` x (K tile, V tile, bias)
+  static constexpr int smem_bytes(int stages) { return kTileBytes + stages * kStageBytes; }
+};
+
+// Two thread blocks an SM up to D = 64 (128 registers a thread at block 128,
+// a few words spilled): one block's loads then run under the other's
+// products, which measured faster than one block with every value in
+// registers, than 64-row thread blocks, than two 16-row tiles a warp (255
+// registers and spills), and than a persistent grid that loads the next tile
+// under this one's products.
+template <int BLOCK, int D>
+__global__ void __launch_bounds__(BLOCK * 2, D <= 64 ? 2 : 1)
+flash_fwd_mma_kernel(const Params P) {
+  using Lay = FwdLayout<BLOCK, D>;
+  constexpr int THREADS = BLOCK * 2;
+  constexpr int STRIDE = Lay::kStride;
+  constexpr int CPR = D / 8;     // 16-byte chunks per row
+  constexpr int NT = BLOCK / 8;  // score n-tiles
+  constexpr int DT = D / 8;      // output n-tiles
+  const int bh = blockIdx.x, qi = blockIdx.y, nqb = gridDim.y;
+  const int h = bh % P.H, b = bh / P.H, S = P.S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ float4 smem4[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* stages = sQ + Lay::kTileBytes;
+
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(P.q) + base +
+                           static_cast<size_t>(qi) * BLOCK * D;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(P.k) + base;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(P.v) + base;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(P.out0) + base +
+                       static_cast<size_t>(qi) * BLOCK * D;
+  float* lse = static_cast<float*>(P.out1) + static_cast<size_t>(bh) * S + qi * BLOCK;
+  const int* lut = P.lut + (static_cast<size_t>(h) * nqb + qi) * P.maxn;
+  const int count = P.counts[h * nqb + qi];
+
+  if (count == 0) {  // the block's rows see no key
+    for (int e = tid; e < BLOCK * CPR; e += THREADS)
+      reinterpret_cast<uint4*>(out)[e] = make_uint4(0u, 0u, 0u, 0u);
+    for (int r = tid; r < BLOCK; r += THREADS) lse[r] = kBig;
+    return;
+  }
+
+  auto load_tile = [&](unsigned char* dst, const __nv_bfloat16* src) {
+    for (int e = tid; e < BLOCK * CPR; e += THREADS) {
+      const int r = e / CPR, ch = e % CPR;
+      cp_async16(smem_u32(dst + (r * STRIDE + ch * 8) * 2), src + r * D + ch * 8, 16);
+    }
+  };
+  auto load_bias = [&](unsigned char* stage, int k0) {
+    for (int e = tid; e < BLOCK / 4; e += THREADS)
+      cp_async16(smem_u32(stage + 2 * Lay::kTileBytes + e * 16), P.bias + b * S + k0 + e * 4,
+                 16);
+  };
+
+  {  // group 0: Q, the first K and its bias; group 1: the first V
+    const int k0 = lut[0] * BLOCK;
+    load_tile(sQ, q);
+    load_tile(stages, k + static_cast<size_t>(k0) * D);
+    load_bias(stages, k0);
+    cp_async_commit();
+    load_tile(stages + Lay::kTileBytes, v + static_cast<size_t>(k0) * D);
+    cp_async_commit();
+  }
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows of the block: r0, r0 + 8
+  const int qpos0 = qi * BLOCK + r0, qpos1 = qpos0 + 8;
+  const int mat = lane >> 3;
+  float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;  // l: this thread's columns only
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+
+  for (int n = 0; n < count; ++n) {
+    const int kj = lut[n], k0 = kj * BLOCK;
+    const bool has_next = n + 1 < count;
+    unsigned char* stage = stages + (n & 1) * Lay::kStageBytes;
+    if (has_next) {  // the next LUT block loads under this one's products
+      unsigned char* next = stages + ((n + 1) & 1) * Lay::kStageBytes;
+      const int k1 = lut[n + 1] * BLOCK;
+      load_tile(next, k + static_cast<size_t>(k1) * D);
+      load_tile(next + Lay::kTileBytes, v + static_cast<size_t>(k1) * D);
+      load_bias(next, k1);
+      cp_async_commit();
+    }
+    // K (and, at first, Q) must have landed; at n == 0 V is one group younger
+    if (n == 0) {
+      if (has_next) cp_async_wait<2>(); else cp_async_wait<1>();
+    } else {
+      if (has_next) cp_async_wait<1>(); else cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* tK = stage;
+    const unsigned char* tV = stage + Lay::kTileBytes;
+    const float* sB = reinterpret_cast<const float*>(stage + 2 * Lay::kTileBytes);
+
+    float s[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      ldmatrix_x4(qf, smem_u32(sQ + ((warp * 16 + (lane & 7) + (mat & 1) * 8) * STRIDE +
+                                     kk * 16 + (mat >> 1) * 8) * 2));
+#pragma unroll
+      for (int tp = 0; tp < NT / 2; ++tp) {
+        const int key = tp * 16 + (mat >> 1) * 8 + (lane & 7);
+        const int col = kk * 16 + (mat & 1) * 8;
+        uint32_t bf[4];
+        ldmatrix_x4(bf, smem_u32(tK + (key * STRIDE + col) * 2));
+        mma_bf16(s[2 * tp], qf, bf[0], bf[1]);
+        mma_bf16(s[2 * tp + 1], qf, bf[2], bf[3]);
+      }
+    }
+
+    // only a key block that reaches past the query block's first row can hold
+    // a causally masked pair; the others skip the compare
+    const bool diagonal = P.causal && k0 + BLOCK - 1 > qi * BLOCK;
+    float mx0 = kNegBig, mx1 = kNegBig;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int col = t * 8 + (lane & 3) * 2;
+      const float2 bias = *reinterpret_cast<const float2*>(sB + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float be = e ? bias.y : bias.x;
+        s[t][e] = masked_score(s[t][e], P.scale, be, diagonal && qpos0 < k0 + col + e);
+        s[t][2 + e] = masked_score(s[t][2 + e], P.scale, be, diagonal && qpos1 < k0 + col + e);
+        mx0 = fmaxf(mx0, s[t][e]);
+        mx1 = fmaxf(mx1, s[t][2 + e]);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float corr0 = __expf(m0 - mn0), corr1 = __expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p, its row sums, the keep mask, and p rounded to bf16 as the A operand
+    uint32_t pa[NT][2];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      float p[4];
+      p[0] = __expf(s[t][0] - mn0);
+      p[1] = __expf(s[t][1] - mn0);
+      p[2] = __expf(s[t][2] - mn1);
+      p[3] = __expf(s[t][3] - mn1);
+      ps0 += p[0] + p[1];
+      ps1 += p[2] + p[3];
+      if (P.dropout) {
+        // lanes t, t^1 share the column quad: the even lane draws row r0's
+        // four words, the odd lane row r0 + 8's, and each hands the other
+        // the two words of the other's columns
+        const bool odd = lane & 1;
+        const uint4 bits = philox4x32_10(
+            make_uint4(qi, kj, odd ? r0 + 8 : r0, 2 * t + ((lane & 3) >> 1)),
+            make_uint2(P.seed, bh));
+        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? bits.x : bits.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? bits.y : bits.w, 1);
+        const uint32_t w[4] = {odd ? got0 : bits.x, odd ? got1 : bits.y,   // row r0
+                               odd ? bits.z : got0, odd ? bits.w : got1};  // row r0 + 8
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = w[e] >= P.threshold ? p[e] * P.keep_scale : 0.f;
+      }
+      pa[t][0] = pack_bf16(p[0], p[1]);
+      pa[t][1] = pack_bf16(p[2], p[3]);
+    }
+    l0 = l0 * corr0 + ps0;
+    l1 = l1 * corr1 + ps1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      o[d][0] *= corr0;
+      o[d][1] *= corr0;
+      o[d][2] *= corr1;
+      o[d][3] *= corr1;
+    }
+
+    if (n == 0) {  // the first V
+      if (has_next) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ks = 0; ks < BLOCK / 16; ++ks) {
+      const uint32_t a[4] = {pa[2 * ks][0], pa[2 * ks][1], pa[2 * ks + 1][0],
+                             pa[2 * ks + 1][1]};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        const int key = ks * 16 + (mat & 1) * 8 + (lane & 7);
+        const int col = dp * 16 + (mat >> 1) * 8;
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, smem_u32(tV + (key * STRIDE + col) * 2));
+        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // the stage may be refilled
+  }
+
+  // out = acc / l through the warp's own rows of the Q tile, then 16 bytes a thread
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const bool alive0 = l0 > 0.f, alive1 = l1 > 0.f;
+  // one division a row: the quotient is rounded to bf16 anyway
+  const float inv0 = alive0 ? 1.f / l0 : 0.f, inv1 = alive1 ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + (lane & 3) * 2;
+    *reinterpret_cast<uint32_t*>(sQ + (r0 * STRIDE + col) * 2) =
+        pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sQ + ((r0 + 8) * STRIDE + col) * 2) =
+        pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+  }
+  if ((lane & 3) == 0) {
+    lse[r0] = alive0 ? m0 + logf(l0) : kBig;
+    lse[r0 + 8] = alive1 ? m1 + logf(l1) : kBig;
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = warp * 16 + e / CPR, ch = e % CPR;
+    *reinterpret_cast<uint4*>(out + r * D + ch * 8) =
+        *reinterpret_cast<const uint4*>(sQ + (r * STRIDE + ch * 8) * 2);
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(128 * (D / 32))
 flash_bwd_dq_kernel(const Params P) {
@@ -383,9 +638,11 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
-  void (*kernel)(const Params) = kind == kFwd  ? flash_fwd_kernel<T, D>
-                                 : kind == kDq ? flash_bwd_dq_kernel<T, D>
-                                               : flash_bwd_dkv_kernel<T, D>;
+  void (*kernel)(const Params) =
+      kind == kDq ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
+  if constexpr (sizeof(T) == 4) {  // the bf16 forward is flash_fwd_mma_kernel
+    if (kind == kFwd) kernel = flash_fwd_kernel<T, D>;
+  }
   const size_t smem = sizeof(float) * (2 * P.block * D + 2 * P.block);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -394,8 +651,39 @@ cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int BLOCK, int D>
+cudaError_t launch_fwd_mma(const Params& P, int BH, cudaStream_t stream) {
+  auto kernel = flash_fwd_mma_kernel<BLOCK, D>;
+  // the second stage is only ever filled when a row has more than one LUT block
+  const int smem = FwdLayout<BLOCK, D>::smem_bytes(P.maxn > 1 ? 2 : 1);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, P.S / BLOCK), BLOCK * 2, smem, stream>>>(P);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_fwd_mma(const Params& P, int BH, cudaStream_t stream) {
+  if (P.block == 16) return launch_fwd_mma<16, D>(P, BH, stream);
+  if (P.block == 32) return launch_fwd_mma<32, D>(P, BH, stream);
+  if (P.block == 64) return launch_fwd_mma<64, D>(P, BH, stream);
+  if (P.block == 128) return launch_fwd_mma<128, D>(P, BH, stream);
+  return cudaErrorInvalidValue;
+}
+
+// the bf16 forward runs on the tensor cores; the fp32 forward and both
+// backward kernels on the fp32 CUDA cores
 template <typename T>
 cudaError_t dispatch_d(Kind kind, int D, const Params& P, int BH, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (kind == kFwd) {
+      if (D == 32) return dispatch_fwd_mma<32>(P, BH, stream);
+      if (D == 64) return dispatch_fwd_mma<64>(P, BH, stream);
+      if (D == 128) return dispatch_fwd_mma<128>(P, BH, stream);
+      return cudaErrorInvalidValue;
+    }
+  }
   if (D == 32) return launch<T, 32>(kind, P, BH, stream);
   if (D == 64) return launch<T, 64>(kind, P, BH, stream);
   if (D == 128) return launch<T, 128>(kind, P, BH, stream);

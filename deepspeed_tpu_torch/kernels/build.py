@@ -8,7 +8,9 @@ which is loaded with ``ctypes``. The library lands under
 ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources, so an edited source is
 never served by a stale build. A build failure raises: there is no
-fallback.
+fallback. ``DS_TORCH_NVCC_FLAGS`` adds flags (``-Xptxas -v`` prints each
+kernel's registers, shared memory and spills); what ``nvcc`` printed is
+kept in ``nvcc.log`` beside the library.
 """
 
 import ctypes
@@ -32,7 +34,9 @@ _U = ctypes.c_uint
 # argtypes of every C entry: pointers and the stream as c_void_p (a plain
 # int would be cut to 32 bits), every entry returns cudaGetLastError()
 _SIGNATURES = {
-    "ds_decode_attend": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q pages_k pages_v tables qpos k_scale v_scale out part_acc part_ml |
+    # B C nh hd pt mp pages_per_split q_dtype kv_dtype | scale stream
+    "ds_decode_attend": [_P] * 10 + [_I] * 9 + [_F, _P],
     "ds_band_attend": [_P] * 8 + [_I] * 6 + [_F, _P],
     # q k v bias lut counts out lse | B H S D block maxn causal dtype |
     # scale seed threshold keep_scale dropout stream
@@ -67,13 +71,17 @@ def sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _flags():
+    return (*NVCC_FLAGS, *os.environ.get("DS_TORCH_NVCC_FLAGS", "").split())
+
+
 def _digest():
     h = hashlib.sha256()
     for f in sorted(_CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags()).encode())
     return h.hexdigest()[:16]
 
 
@@ -90,14 +98,16 @@ def build():
     procs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}_{lib_path.stem[-16:]}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *_flags(), "-I", str(_CSRC), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failures = []
+    failures, log = [], []
     for src, _, proc in procs:
         out, _ = proc.communicate()
+        log.append(f"== {src.name} ({time.perf_counter() - t0:.1f} s)\n{out}")
         if proc.returncode != 0:
             failures.append(f"{src.name}:\n{out}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
     if failures:
         raise KernelBuildError("nvcc failed\n" + "\n".join(failures))
     tmp = lib_path.with_suffix(f".tmp{os.getpid()}")

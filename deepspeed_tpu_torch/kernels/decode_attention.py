@@ -11,15 +11,22 @@ and the PV sum, so no dequantized page copy exists.
 
 ``decode_attend`` launches the kernel for CUDA tensors and runs the plain
 version ``_decode_attend_torch`` for CPU tensors; nothing falls back from
-one to the other. The plain version mirrors the JAX fallback op for op
-(a loop per lane and per page around the shared ``_page_update``), with
-one addition: queries run in zero-padded tiles of ``_QTILE``, so every
-query's dot products go through one fixed matmul shape whatever the
-chunk width. PyTorch's CPU matmuls pick their blocking by shape, and the
-fixed tile keeps a query's bits the same in a prefill chunk, a decode
-step and a serving lane — the continuous-vs-``generate()`` oracle rests
-on that.
+one to the other. The kernel cuts every lane's cache into splits of a
+fixed number of keys (``split_plan``), one block per split, and a second
+small device kernel merges a query's partial (m, l, acc) in ascending key
+order (``_merge_partial`` is that merge in PyTorch); the wrapper
+allocates the partials' scratch.
+
+The plain version mirrors the JAX fallback op for op (a loop per lane and
+per page around the shared ``_page_update``), with one addition: queries
+run in zero-padded tiles of ``_QTILE``, so every query's dot products go
+through one fixed matmul shape whatever the chunk width. PyTorch's CPU
+matmuls pick their blocking by shape, and the fixed tile keeps a query's
+bits the same in a prefill chunk, a decode step and a serving lane: the
+continuous-vs-``generate()`` oracle rests on that.
 """
+
+import math
 
 import torch
 
@@ -27,6 +34,7 @@ from deepspeed_tpu_torch.kernels import build, registry
 
 _QTILE = 8
 _NEG = -1e30
+_SPLIT_KEYS = 256   # the kernel's kMaxSplitKeys: a split is whole pages, at most this long
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -98,6 +106,40 @@ def _decode_attend_torch(q, pages_k, pages_v, tables, qpos, pt, dtype,
     return torch.stack(out)
 
 
+def split_plan(pt, mp):
+    """How the kernel cuts a lane's ``mp`` pages of ``pt`` tokens across
+    blocks: ``(pages per split, number of splits)``. A split is as many
+    whole pages as fit in ``_SPLIT_KEYS`` keys (at least one), so its
+    boundaries are fixed key positions that depend on ``pt`` alone: a
+    wider table only appends splits, and neither the batch nor the chunk
+    width moves a boundary. A query's bits rest on that."""
+    pps = max(1, _SPLIT_KEYS // pt)
+    return pps, -(-mp // pps)
+
+
+def split_bounds(pt, mp):
+    """The ``[start, end)`` key positions of every split of ``split_plan``."""
+    pps, nsplit = split_plan(pt, mp)
+    return [(s * pps * pt, min((s + 1) * pps, mp) * pt) for s in range(nsplit)]
+
+
+def _scratch_shapes(B, C, nh, hd, nsplit):
+    """Shapes of the fp32 scratch for the splits' partials: the
+    accumulators and the (m, l) pairs, one row per (split, query, head)."""
+    return (nsplit, B, C, nh, hd), (nsplit, B, C, nh, 2)
+
+
+def _merge_partial(carry, part):
+    """The kernel's merge of two online-softmax carries ``(m, l, acc)``
+    (m, l [...]; acc [..., hd]; fp32): every product and sum rounded on
+    its own. A part that saw no key (m = -1e30, l = 0, acc = 0) changes
+    nothing, bit for bit."""
+    (m1, l1, a1), (m2, l2, a2) = carry, part
+    m = torch.maximum(m1, m2)
+    w1, w2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    return m, l1 * w1 + l2 * w2, a1 * w1[..., None] + a2 * w2[..., None]
+
+
 def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
                         k_scale, v_scale):
     B, C, nh, hd = q.shape
@@ -139,6 +181,11 @@ def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
         if not t.is_contiguous():
             raise ValueError("decode_attend: every input must be contiguous")
     out = torch.empty_like(q)
+    pps, nsplit = split_plan(pt, mp)
+    acc_shape, ml_shape = _scratch_shapes(B, C, nh, hd, nsplit)
+    n_acc = math.prod(acc_shape)
+    scratch = torch.empty(n_acc + math.prod(ml_shape), dtype=torch.float32, device=dev)
+    part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
     lib = build.load_library()
     with torch.cuda.device(dev):
         rc = lib.ds_decode_attend(
@@ -146,7 +193,8 @@ def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
             tables.data_ptr(), qpos.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
-            out.data_ptr(), B, C, nh, hd, pt, mp, _DTYPE_CODES[q.dtype],
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            B, C, nh, hd, pt, mp, pps, _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[pages_k.dtype], float(_attn_scale(hd, dtype, quant)),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode_attention")

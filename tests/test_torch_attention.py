@@ -232,3 +232,41 @@ def test_dropout_grads_match_explicit_mask_reference(causal):
                               generator=torch.Generator().manual_seed(9),
                               force_reference=True)
     torch.testing.assert_close(dense, out.detach(), rtol=1e-5, atol=1e-5)
+
+
+def _mma_tile_keep(seed, bh, qi, kj, warp, block, rate):
+    """The bf16 forward kernel's keep mask of warp ``warp``'s 16 x
+    ``block`` score tile, rebuilt from its lane map: in an mma accumulator
+    lane t holds columns 8 nt + 2 (t % 4) + {0, 1} of the block's rows
+    r0 = 16 warp + t / 4 and r0 + 8. A Philox call gives four neighbouring
+    columns, so lanes t and t ^ 1 share a column quad: the even lane
+    draws row r0's call, the odd lane row r0 + 8's, and each hands the
+    other the two words of the other's columns. Returns bool [16, block]."""
+    thr = T._dropout_threshold(rate)
+    lane = torch.arange(32)
+    odd = (lane & 1).bool()
+    r0 = 16 * warp + (lane >> 2)
+    keep = torch.zeros(16, block, dtype=torch.bool)
+    for nt in range(block // 8):
+        quad = 2 * nt + ((lane & 3) >> 1)
+        x, y, z, w = T.philox4x32((qi, kj, torch.where(odd, r0 + 8, r0), quad), (seed, bh))
+        send0, send1 = torch.where(odd, x, z), torch.where(odd, y, w)
+        got0, got1 = send0[lane ^ 1], send1[lane ^ 1]       # __shfl_xor by 1
+        words = (torch.where(odd, got0, x), torch.where(odd, got1, y),    # row r0
+                 torch.where(odd, z, got0), torch.where(odd, w, got1))    # row r0 + 8
+        col = nt * 8 + (lane & 3) * 2
+        for e in range(2):
+            keep[lane >> 2, col + e] = words[e] >= thr
+            keep[(lane >> 2) + 8, col + e] = words[2 + e] >= thr
+    return keep
+
+
+@pytest.mark.parametrize("warp", [0, 3, 7])
+def test_mma_lane_map_and_philox_pairing_reproduce_dropout_keep(warp):
+    """A 16 x 128 tile of the forward kernel draws exactly
+    ``_dropout_keep``'s bits through its lane map and lane pairing."""
+    seed, bh, qi, kj, block, rate = 4321, 37, 2, 5, 128, 0.1
+    want = T._dropout_keep(seed, bh, qi, kj, block, block, rate, "cpu") > 0
+    got = _mma_tile_keep(seed, bh, qi, kj, warp, block, rate)
+    assert torch.equal(got, want[16 * warp:16 * warp + 16])
+    assert 0.85 < float(got.float().mean()) < 0.95

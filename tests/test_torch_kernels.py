@@ -22,6 +22,7 @@ import torch  # noqa: E402
 
 from deepspeed_tpu import kernels as jkernels  # noqa: E402
 from deepspeed_tpu_torch import kernels as tkernels  # noqa: E402
+from deepspeed_tpu_torch.kernels import decode_attention as tdecode  # noqa: E402
 from deepspeed_tpu_torch.kernels.decode_attention import _decode_attend_torch  # noqa: E402
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -237,3 +238,74 @@ def test_wrappers_reject_other_devices():
                                torch.zeros(1, 1, dtype=torch.int32),
                                torch.zeros(1, 1, dtype=torch.int32),
                                page_tokens=4, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split of the cache across blocks, mirrored in PyTorch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pt", [1, 7, 100, 128, 129, 256])
+def test_split_plan_is_a_function_of_page_size_alone(pt):
+    """Boundaries are fixed key positions: a wider table only appends
+    splits, every page lies in exactly one split, no split is longer than
+    the kernel's limit (unless one page is), and the scratch is sized by
+    the plan whatever the batch and the chunk width."""
+    bounds = {mp: tdecode.split_bounds(pt, mp) for mp in (1, 2, 5, 8, 64, 300)}
+    widest = bounds[300]
+    for mp, b in bounds.items():
+        assert b[:-1] == widest[:len(b) - 1]                # a prefix of the wider plan
+        assert b[-1][0] == widest[len(b) - 1][0] and b[-1][1] == mp * pt
+        assert b[0][0] == 0 and all(x[1] == y[0] for x, y in zip(b, b[1:]))
+        assert all(s % pt == 0 and e % pt == 0 for s, e in b)
+        assert all(0 < e - s <= max(tdecode._SPLIT_KEYS, pt) for s, e in b)
+        pps, nsplit = tdecode.split_plan(pt, mp)
+        assert nsplit == len(b) and pps * pt == widest[0][1]
+        for B, C in ((1, 1), (8, 1), (8, 40), (3, 512)):
+            acc, ml = tdecode._scratch_shapes(B, C, 25, 64, nsplit)
+            assert acc == (len(b), B, C, 25, 64) and ml == (len(b), B, C, 25, 2)
+
+
+def _split_attend(q, pk, pv, tables, qpos, pt):
+    """One lane (B = 1) the way the kernel computes it: every split's
+    pages through ``_page_update`` from an empty carry, then the partials
+    merged in ascending key order."""
+    _, C, nh, hd = q.shape
+    mp = tables.shape[1]
+    qb = q[0].permute(1, 0, 2)[None]                        # [1, nh, C, hd]
+    scale = tdecode._attn_scale(hd, torch.float32, False)
+    koff = torch.arange(pt)
+    empty = lambda: (torch.full((1, nh, C), -1e30), torch.zeros(1, nh, C),
+                     torch.zeros(1, nh, C, hd))
+    carry = empty()
+    pps, nsplit = tdecode.split_plan(pt, mp)
+    for s in range(nsplit):
+        part = empty()
+        for j in range(s * pps, min((s + 1) * pps, mp)):
+            pid = int(tables[0, j])
+            valid = (j * pt + koff)[None, :] <= qpos[0][:, None]        # [C, pt]
+            part = tdecode._page_update(qb, pk[pid], pv[pid], valid[None, None],
+                                        *part, scale)
+        carry = tdecode._merge_partial(carry, part)
+    m, l, acc = carry
+    return (acc / torch.clamp_min(l, 1e-30)[..., None])[0].permute(1, 0, 2)   # [C, nh, hd]
+
+
+@pytest.mark.parametrize("C", [1, 5])
+def test_split_and_merge_equals_plain_version(C, monkeypatch):
+    """Cutting a lane's keys at the planned boundaries and merging the
+    partials in ascending order is the plain version's attention (1e-6),
+    and trailing parts the queries cannot see change nothing, bit for bit."""
+    monkeypatch.setattr(tdecode, "_SPLIT_KEYS", 8)          # 2 pages a split
+    nh, pt, hd, mp, P = 2, 4, 8, 7, 12
+    q, pk, pv, tables, _ = _paged_case(21, 1, C, nh, pt, hd, mp, P)
+    qpos = np.sort(np.random.RandomState(4).randint(0, 4 * pt, (1, C)), axis=1)
+    qpos = qpos.astype(np.int32)                            # the last 3 pages are unseen
+    t = torch.from_numpy
+    assert tdecode.split_plan(pt, mp) == (2, 4)
+    got = _split_attend(t(q), t(pk), t(pv), t(tables), t(qpos), pt)
+    want = _decode_attend_torch(t(q), t(pk), t(pv), t(tables), t(qpos), pt,
+                                torch.float32, None, None)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    seen = int(qpos.max()) // pt + 1
+    short = _split_attend(t(q), t(pk), t(pv), t(tables[:, :seen].copy()), t(qpos), pt)
+    assert torch.equal(short, got)
