@@ -14,7 +14,8 @@ prints no result line):
    library call computing the same attention (a yardstick only), and the
    least time the card could take (the bound); then show bit for bit that
    a query's output does not depend on the batch, the table width or the
-   chunk around it;
+   chunk around it, and that a one-token prompt's prefill alone equals its
+   row of a bucket-wide prefill chunk;
 3. serve GPT-2 XL at full width (random weights from seed 0, bf16) with
    the continuous-batching engine on the kernel backends, and show that
    both kernels launched;
@@ -24,8 +25,9 @@ prints no result line):
    against their plain versions at the BERT-large training shapes (bf16
    and fp32, padded keys, causal, a block-16 sparse layout with an empty
    row, dropout 0.1 on the same Philox bits; head dims 128 and 32 and
-   longer sequences in blocks of 64 and 32 once each), and time them as phase 2 does, with
-   ``scaled_dot_product_attention`` and its backward as the yardsticks;
+   longer sequences in blocks of 64 and 32 once each, forward timed only),
+   and time them as phase 2 does, with ``scaled_dot_product_attention``
+   and its backward as the yardsticks;
 6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
    ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
    dropout 0.1) on one repeated random batch, show that all three flash
@@ -183,6 +185,34 @@ def decode_odd_case(C, kv, shape):
                     da._decode_attend_torch(*args), TOL[kv])
     return dict(case=label, max_abs_err=err, tol=TOL[kv],
                 invariance=decode_invariance(args, label))
+
+
+def decode_one_token_prefill(kv, shape):
+    """A one-token prompt in both callers' shapes: its prefill alone (C = 1,
+    as ``generate()`` calls it) holds the plain version and equals, bit for
+    bit, its row of the bucket-wide chunks that serving prefills it in."""
+    from deepspeed_tpu_torch.kernels import decode_attention as da
+
+    args = _decode_inputs(1, kv, shape)
+    q, pk, pv, tables, qpos, pt, qdt, ks, vs = args
+    qpos[0, 0] = 0                 # lane 0: the prompt's own position
+    label = f"one-token prefill pages={kv} shape={shape}"
+    alone = da._decode_attend_cuda(*args, prefill=True)
+    err, _ = _check(f"decode_attention {label}", alone,
+                    da._decode_attend_torch(*args), TOL[kv])
+    last = tables.shape[1] * pt - 1
+    for wide in (8, 128):
+        qw = torch.zeros(q.shape[0], wide, *q.shape[2:], dtype=q.dtype, device="cuda")
+        qw[:, :1] = q
+        qposw = (qpos + torch.arange(wide, device="cuda", dtype=torch.int32))
+        qposw = qposw.clamp(max=last).contiguous()
+        chunk = da._decode_attend_cuda(qw, pk, pv, tables, qposw, pt, qdt, ks, vs,
+                                       prefill=True)
+        if not torch.equal(chunk[:, :1], alone):
+            raise RuntimeError(f"decode_attention {label}: the prefill alone differs "
+                               f"from its row of a chunk of {wide}")
+    torch.cuda.synchronize()
+    return dict(case=label, max_abs_err=err, tol=TOL[kv], invariance=2)
 
 
 def decode_case(timer, C, kv):
@@ -472,9 +502,6 @@ FLASH_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 FLASH_MAIN_CASE = "bf16 padded dropout0.1"
-# main-case times (ms) of the two kernels' earlier designs, on the same card
-# type at 700 W (PERF.md's kernel table), printed beside the new times
-PREVIOUS_MS = {"decode_attention": 0.180, "flash_attention_fwd": 0.426}
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
@@ -517,9 +544,10 @@ def _flash_work(lut, counts, qlut, qcounts, block, causal, elem, FD=FD, FB=FB, F
 
 
 def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
-               sparse=False, FD=FD, FB=FB, FS=FS, block=None):
+               sparse=False, FD=FD, FB=FB, FS=FS, block=None, forward_only=False):
     """Kernels 1-3 against their plain versions on one input set, with
-    times, bounds and the SDPA yardsticks."""
+    times, bounds and the SDPA yardsticks; ``forward_only`` checks all
+    three but times the forward and its yardstick alone."""
     from deepspeed_tpu_torch.ops.transformer import attention as fa
 
     dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
@@ -580,17 +608,22 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
     lib_fwd = timer(sdpa)
-    o_lib = sdpa()
-    lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
     work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size(), FD, FB, FS)
     res = {}
-    for kind, (kern, plain) in calls.items():
-        bound_ms, bound_by = _bound(*work[kind], dt)
-        res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
-                         library_ms=lib_fwd if kind == "fwd" else lib_bwd,
-                         bound_ms=bound_ms, bound_by=bound_by)
-    return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal, dropout=rate, tol=tol,
-                max_abs_err=errs, kernels=res)
+    if forward_only:
+        bound_ms, bound_by = _bound(*work["fwd"], dt)
+        res["fwd"] = dict(ms=timer(calls["fwd"][0]), library_ms=lib_fwd,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    else:
+        o_lib = sdpa()
+        lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
+        for kind, (kern, plain) in calls.items():
+            bound_ms, bound_by = _bound(*work[kind], dt)
+            res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
+                             library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal,
+                dropout=rate, tol=tol, max_abs_err=errs, kernels=res)
 
 
 def _bert_batch(cfg, batch, seq, seed=0):
@@ -677,6 +710,54 @@ class _PlainAttention:
 
 
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad")
+
+
+def _report(tag, result):
+    print(tag, json.dumps(result), flush=True)
+    return result
+
+
+def _phase(name, fn, *args):
+    t0 = time.perf_counter()
+    result = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
+def phase_kernels(timer):
+    """Phase 2; every case is printed as soon as it has passed."""
+    serving = (B, NH, HD, PT, MP)
+    decode_cases = [_report("case", decode_case(timer, C, kv)) for C in (1, 2, 40, 512)
+                    for kv in ("fp32", "bf16", "int8")]
+    band_cases = [_report("case", band_case(timer, N, dt)) for N in (8, 8 * PT)
+                  for dt in ("fp32", "bf16")]
+    odd_cases = [_report("case", decode_odd_case(C, kv, shape)) for shape in ODD_SHAPES
+                 for C in (1, 5, 70) for kv in ("fp32", "bf16", "int8")]
+    odd_cases += [_report("case", decode_one_token_prefill(kv, shape))
+                  for shape in (serving,) + ODD_SHAPES for kv in ("bf16", "int8")]
+    return decode_cases, band_cases, odd_cases
+
+
+def phase_flash(timer):
+    """Phase 5; every case is printed as soon as it has passed."""
+    cases = (
+        dict(label="bf16 padded", dtype_name="bf16"),
+        dict(label="fp32 padded", dtype_name="fp32"),
+        dict(label="bf16 causal", dtype_name="bf16", causal=True, padded=False),
+        dict(label="bf16 block16 sparse empty-row", dtype_name="bf16", sparse=True),
+        dict(label=FLASH_MAIN_CASE, dtype_name="bf16", rate=0.1),
+        dict(label="fp32 causal dropout0.1", dtype_name="fp32", causal=True, rate=0.1),
+        # the tile code differs by head dim
+        dict(label="bf16 D128 causal dropout0.1", dtype_name="bf16", causal=True, rate=0.1,
+             FD=128, forward_only=True),
+        dict(label="bf16 D32 padded", dtype_name="bf16", FD=32, forward_only=True),
+        # several LUT blocks a row: the K/V ring runs with both stages
+        dict(label="bf16 S512 block64 causal dropout0.1", dtype_name="bf16", causal=True,
+             rate=0.1, FB=8, FS=512, block=64, forward_only=True),
+        dict(label="bf16 S256 block32 padded", dtype_name="bf16", FB=8, FS=256, block=32,
+             forward_only=True),
+    )
+    return [_report("flash_case", flash_case(timer, **c)) for c in cases]
 GRAD_TOL = 1e-4   # relative to each gradient's largest magnitude: fp32, same masks
 
 
@@ -746,44 +827,17 @@ def main():
 
     timer = Timer()
     if "kernels" in phases:
-        decode_cases = [decode_case(timer, C, kv) for C in (1, 2, 40, 512)
-                        for kv in ("fp32", "bf16", "int8")]
-        band_cases = [band_case(timer, N, dt) for N in (8, 8 * PT)
-                      for dt in ("fp32", "bf16")]
-        odd_cases = [decode_odd_case(C, kv, shape) for shape in ODD_SHAPES
-                     for C in (1, 5, 70) for kv in ("fp32", "bf16", "int8")]
-        for c in decode_cases + band_cases + odd_cases:
-            print("case", json.dumps(c), flush=True)
+        decode_cases, band_cases, odd_cases = _phase("kernels", phase_kernels, timer)
     if "serve" in phases:
-        served = phase_serve()
-        print("serve", json.dumps(served), flush=True)
+        served = _report("serve", _phase("serve", phase_serve))
     if "oracle" in phases:
-        oracle = phase_oracle()
-        print("oracle", json.dumps(oracle), flush=True)
+        oracle = _report("oracle", _phase("oracle", phase_oracle))
     if "flash" in phases:
-        flash_cases = [
-            flash_case(timer, "bf16 padded", "bf16"),
-            flash_case(timer, "fp32 padded", "fp32"),
-            flash_case(timer, "bf16 causal", "bf16", causal=True, padded=False),
-            flash_case(timer, "bf16 block16 sparse empty-row", "bf16", sparse=True),
-            flash_case(timer, FLASH_MAIN_CASE, "bf16", rate=0.1),
-            flash_case(timer, "fp32 causal dropout0.1", "fp32", causal=True, rate=0.1),
-            flash_case(timer, "bf16 D128 causal dropout0.1", "bf16", causal=True, rate=0.1,
-                       FD=128),
-            flash_case(timer, "bf16 D32 padded", "bf16", FD=32),
-            # several LUT blocks a row: the K/V ring runs with both stages
-            flash_case(timer, "bf16 S512 block64 causal dropout0.1", "bf16", causal=True,
-                       rate=0.1, FB=8, FS=512, block=64),
-            flash_case(timer, "bf16 S256 block32 padded", "bf16", FB=8, FS=256, block=32),
-        ]
-        for c in flash_cases:
-            print("flash_case", json.dumps(c), flush=True)
+        flash_cases = _phase("flash", phase_flash, timer)
     if "train" in phases:
-        trained = phase_train()
-        print("train", json.dumps(trained), flush=True)
+        trained = _report("train", _phase("train", phase_train))
     if "grad" in phases:
-        grad_oracle = phase_grad_oracle()
-        print("grad_oracle", json.dumps(grad_oracle), flush=True)
+        grad_oracle = _report("grad_oracle", _phase("grad", phase_grad_oracle))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -801,8 +855,7 @@ def main():
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             main_case=main_case,
-            cases=cases + (odd_cases if name == "decode_attention" else []),
-            **({"previous_ms": PREVIOUS_MS[name]} if name in PREVIOUS_MS else {})))
+            cases=cases + (odd_cases if name == "decode_attention" else [])))
     rep = next(c for c in flash_cases if c["case"] == FLASH_MAIN_CASE)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv", "db")}
     for name, kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
@@ -812,7 +865,6 @@ def main():
             launches=trained["launches"][name],
             max_abs_err=max(c["max_abs_err"][o] for c in flash_cases for o in outputs[kind]),
             **rep["kernels"][kind], main_case=FLASH_MAIN_CASE,
-            **({"previous_ms": PREVIOUS_MS[name]} if name in PREVIOUS_MS else {}),
             library_call=("scaled_dot_product_attention" if kind == "fwd" else
                           "scaled_dot_product_attention backward (dq, dk, dv together)")))
     card = card_info()

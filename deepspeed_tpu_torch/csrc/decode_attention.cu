@@ -26,14 +26,14 @@
 // second small kernel on the same stream merges a query's partials in
 // ascending key order and writes acc / max(l, 1e-30). A block whose split no
 // query of its tile can see exits at once. Three routines fill the partials:
-//   * vec (bf16 queries, C == 1): no reuse, so no shared-memory staging. Each
-//     thread loads 16 bytes (8 bf16 / 16 int8) of a K row and of a V row
+//   * vec (bf16 queries, a decode step: C == 1 and not a prefill): no reuse,
+//     so no shared-memory staging. Each thread loads 16 bytes (8 bf16 / 16 int8) of a K row and of a V row
 //     straight to registers, four rows of each in flight; the threads of a row
 //     reduce the dot with shuffles and keep their own online softmax over their
 //     rows; rows, then the four warps (each a quarter of the split), merge in a
 //     fixed tree.
-//   * mma (bf16 queries, C >= 2, bf16 or int8 pages): 64 queries a block, 16 a
-//     warp; K and V blocks of 64 keys arrive by cp.async in a two-stage ring
+//   * mma (bf16 queries, a prefill or C >= 2, bf16 or int8 pages): 64 queries
+//     a block, 16 a warp; K and V blocks of 64 keys arrive by cp.async in a two-stage ring
 //     (int8 is widened to bf16, exactly, on the way), are read with ldmatrix
 //     from padded rows, and S = Q K^T and P V run on mma.sync.m16n8k16 with
 //     fp32 accumulators. P is fp32 in the TPU kernel; here it is split into a
@@ -51,11 +51,12 @@
 // boundaries are fixed key positions (a function of pt alone), every partial
 // starts from an empty carry, the merge order is fixed, a key block or split a
 // query cannot see adds exactly 0 and leaves m alone, and no atomics add
-// floats. The routine is chosen by the query type and by C == 1 against
-// C >= 2: decode steps are C == 1 on both sides and prefills are chunks on
-// both sides (prompt buckets are >= 8 wide), so a request meets the same
-// routine at the same stage in serving and in generate(), except a one-token
-// prompt in bf16 (a bucket-wide chunk against a C == 1 call).
+// floats. The routine is chosen by the query type and by the stage, which the
+// caller names (`prefill`): a decode step (one query a lane, not a prefill) takes
+// vec, a prefill takes mma whatever its width. Serving prefills a prompt as a
+// bucket-wide chunk and generate() at its exact length, down to one token, and
+// both decode one query a lane, so a request meets the same routine at the same
+// stage on both sides; a chunk's rows do not depend on its width.
 
 #include "common.cuh"
 
@@ -101,7 +102,7 @@ struct Merge {
 };
 
 // ---------------------------------------------------------------------------
-// vec: bf16 queries, C == 1
+// vec: bf16 queries, a decode step (C == 1, not a prefill)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void unpack16(const uint4& raw, float (&x)[8], __nv_bfloat16) {
@@ -257,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) decode_vec_kernel(const Args A) {
 }
 
 // ---------------------------------------------------------------------------
-// mma: bf16 queries, C >= 2, bf16 or int8 pages
+// mma: bf16 queries, a prefill or C >= 2, bf16 or int8 pages
 // ---------------------------------------------------------------------------
 
 constexpr int kMQ = 64;  // queries per block: 16 per warp
@@ -802,14 +803,14 @@ cudaError_t launch_merge(const Args& A, void* out, int hd, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
-// the routine by the query type and C == 1 against C >= 2 (see the header)
+// the routine by the query type and the stage (see the header)
 template <int HD>
-cudaError_t partials(const Args& A, int q_dtype, int kv_dtype, cudaStream_t st) {
+cudaError_t partials(const Args& A, int q_dtype, int kv_dtype, bool prefill, cudaStream_t st) {
   if (q_dtype == kF32) {
     if (kv_dtype == kF32) return launch_tile<float, HD>(A, st);
     if (kv_dtype == kBF16) return launch_tile<__nv_bfloat16, HD>(A, st);
     if (kv_dtype == kI8) return launch_tile<int8_t, HD>(A, st);
-  } else if (q_dtype == kBF16 && A.C == 1) {
+  } else if (q_dtype == kBF16 && A.C == 1 && !prefill) {
     if (kv_dtype == kBF16) return launch_vec<__nv_bfloat16, HD>(A, st);
     if (kv_dtype == kI8) return launch_vec<int8_t, HD>(A, st);
   } else if (q_dtype == kBF16) {
@@ -831,13 +832,15 @@ extern "C" const char* ds_error_string(int err) {
 // The cache is cut into splits of `pages_per_split` pages (at most 256 keys);
 // `part_acc` [nsplit, B, C, nh, hd] and `part_ml` [nsplit, B, C, nh, 2] are
 // fp32 scratch for the splits' partials, nsplit = ceil(mp / pages_per_split).
-// Two device kernels are launched: the partials, then the merge.
+// `prefill` != 0 says the queries are a prompt's chunk, not a decode step (it
+// picks the routine, see the header). Two device kernels are launched: the
+// partials, then the merge.
 extern "C" int ds_decode_attend(const void* q, const void* pages_k, const void* pages_v,
                                 const void* tables, const void* qpos, const void* k_scale,
                                 const void* v_scale, void* out, void* part_acc,
                                 void* part_ml, int B, int C, int nh, int hd, int pt, int mp,
-                                int pages_per_split, int q_dtype, int kv_dtype, float scale,
-                                void* stream) {
+                                int pages_per_split, int q_dtype, int kv_dtype, int prefill,
+                                float scale, void* stream) {
   using namespace dstorch;
   if (B < 1 || C < 1 || nh < 1 || pt < 1 || mp < 1 || pages_per_split < 1 ||
       pages_per_split * pt > kMaxSplitKeys)
@@ -865,9 +868,9 @@ extern "C" int ds_decode_attend(const void* q, const void* pages_k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (hd == 64)
-    err = partials<64>(A, q_dtype, kv_dtype, st);
+    err = partials<64>(A, q_dtype, kv_dtype, prefill != 0, st);
   else if (hd == 128)
-    err = partials<128>(A, q_dtype, kv_dtype, st);
+    err = partials<128>(A, q_dtype, kv_dtype, prefill != 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (q_dtype == kF32)
     err = launch_merge<float>(A, out, hd, st);

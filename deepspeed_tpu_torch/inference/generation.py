@@ -258,7 +258,8 @@ def _forward_chunk(model, n_heads, caches, ids, starts, attn_impl="dense",
             + torch.arange(C, device=dev)[None, :])
     rows = _chunk_rows(starts, C, S, dev)
     if attn_impl == "pallas_decode":
-        attend = lambda q, ck, cv, qp: kernels.chunk_attend(q, ck, cv, qp, pt, q.dtype)
+        attend = lambda q, ck, cv, qp: kernels.chunk_attend(q, ck, cv, qp, pt, q.dtype,
+                                                            prefill=True)
     elif attn_impl == "pallas_sparse":
         attend = lambda q, ck, cv, qp: kernels.chunk_band_attend(
             q, ck, cv, qp, pt, q.dtype)

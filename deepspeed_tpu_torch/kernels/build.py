@@ -8,9 +8,9 @@ which is loaded with ``ctypes``. The library lands under
 ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources, so an edited source is
 never served by a stale build. A build failure raises: there is no
-fallback. ``DS_TORCH_NVCC_FLAGS`` adds flags (``-Xptxas -v`` prints each
-kernel's registers, shared memory and spills); what ``nvcc`` printed is
-kept in ``nvcc.log`` beside the library.
+fallback. ``-Xptxas -v`` makes ``nvcc`` print each kernel's registers,
+shared memory and spills; what it printed is kept in ``nvcc.log`` beside
+the library.
 """
 
 import ctypes
@@ -25,7 +25,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +35,8 @@ _U = ctypes.c_uint
 # int would be cut to 32 bits), every entry returns cudaGetLastError()
 _SIGNATURES = {
     # q pages_k pages_v tables qpos k_scale v_scale out part_acc part_ml |
-    # B C nh hd pt mp pages_per_split q_dtype kv_dtype | scale stream
-    "ds_decode_attend": [_P] * 10 + [_I] * 9 + [_F, _P],
+    # B C nh hd pt mp pages_per_split q_dtype kv_dtype prefill | scale stream
+    "ds_decode_attend": [_P] * 10 + [_I] * 10 + [_F, _P],
     "ds_band_attend": [_P] * 8 + [_I] * 6 + [_F, _P],
     # q k v bias lut counts out lse | B H S D block maxn causal dtype |
     # scale seed threshold keep_scale dropout stream
@@ -71,17 +71,13 @@ def sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
-def _flags():
-    return (*NVCC_FLAGS, *os.environ.get("DS_TORCH_NVCC_FLAGS", "").split())
-
-
 def _digest():
     h = hashlib.sha256()
     for f in sorted(_CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(_flags()).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -98,7 +94,7 @@ def build():
     procs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}_{lib_path.stem[-16:]}.o"
-        cmd = [nvcc, *_flags(), "-I", str(_CSRC), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures, log = [], []

@@ -15,7 +15,11 @@ one to the other. The kernel cuts every lane's cache into splits of a
 fixed number of keys (``split_plan``), one block per split, and a second
 small device kernel merges a query's partial (m, l, acc) in ascending key
 order (``_merge_partial`` is that merge in PyTorch); the wrapper
-allocates the partials' scratch.
+allocates the partials' scratch. bf16 queries have two routines, one for
+a decode step and one for a prompt's chunk, and the caller names the stage
+(``prefill``), so that a one-token prompt takes the chunk routine like any
+wider prefill: serving (bucket-wide chunks) and ``generate()`` (exact
+lengths) then run the same routine at the same stage of a request.
 
 The plain version mirrors the JAX fallback op for op (a loop per lane and
 per page around the shared ``_page_update``), with one addition: queries
@@ -141,7 +145,7 @@ def _merge_partial(carry, part):
 
 
 def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
-                        k_scale, v_scale):
+                        k_scale, v_scale, prefill=False):
     B, C, nh, hd = q.shape
     P = pages_k.shape[0]
     mp = tables.shape[1]
@@ -195,7 +199,8 @@ def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
             v_scale.data_ptr() if quant else None,
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
             B, C, nh, hd, pt, mp, pps, _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[pages_k.dtype], float(_attn_scale(hd, dtype, quant)),
+            _DTYPE_CODES[pages_k.dtype], int(bool(prefill)),
+            float(_attn_scale(hd, dtype, quant)),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode_attention")
     registry.record_launch("decode_attention")
@@ -203,13 +208,15 @@ def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
 
 
 def decode_attend(q, pages_k, pages_v, tables, qpos, *, page_tokens, dtype,
-                  k_scale=None, v_scale=None):
+                  k_scale=None, v_scale=None, prefill=False):
     """Paged fused attention: q [B, C, nh, hd] at positions qpos [B, C]
     over the page pool pages_k/v [P, nh, pt, hd] through per-lane page
     tables [B, mp]. int8 pools pass ``k_scale``/``v_scale`` ([P, nh, 1, 1]
     or [P, nh] f32, per page and head); bf16 pages cast at load. Returns
-    [B, C, nh, hd] in ``dtype``. CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
+    [B, C, nh, hd] in ``dtype``. ``prefill`` says the queries are a
+    prompt's chunk and not a decode step; the kernel picks its routine by
+    it (the plain version has one routine). CUDA tensors launch the kernel,
+    CPU tensors run the plain version."""
     pt = int(page_tokens)
     if pages_k.shape[2] != pt:
         raise ValueError(f"pool page size {pages_k.shape[2]} != page_tokens {pt}")
@@ -228,14 +235,15 @@ def decode_attend(q, pages_k, pages_v, tables, qpos, *, page_tokens, dtype,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attend: no kernel for device {q.device}")
     return _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
-                               k_scale, v_scale)
+                               k_scale, v_scale, prefill)
 
 
-def chunk_attend(q, cache_k, cache_v, qpos, page_tokens, dtype):
+def chunk_attend(q, cache_k, cache_v, qpos, page_tokens, dtype, prefill=False):
     """Contiguous-cache adapter: caches [B, nh, S, hd] (S a multiple of
     ``page_tokens``) are viewed as per-lane page runs with an identity
-    page table and routed through ``decode_attend``, so the contiguous
-    path and the serving pool run the same kernel."""
+    page table and routed through ``decode_attend`` (``prefill`` as
+    there), so the contiguous path and the serving pool run the same
+    kernel."""
     B, C, nh, hd = q.shape
     S = cache_k.shape[2]
     pt = int(page_tokens)
@@ -250,4 +258,4 @@ def chunk_attend(q, cache_k, cache_v, qpos, page_tokens, dtype):
     tables = torch.arange(B * mp, dtype=torch.int32,
                           device=q.device).reshape(B, mp)
     return decode_attend(q, paged(cache_k), paged(cache_v), tables, qpos,
-                         page_tokens=pt, dtype=dtype)
+                         page_tokens=pt, dtype=dtype, prefill=prefill)

@@ -273,3 +273,34 @@ def test_background_loop(models):
         eng.close()
     for p, g in zip(PROMPTS[:2], got):
         assert g == _oneshot(model, cfg, p, 4, "pallas_sparse")
+
+
+def test_decode_kernel_is_told_the_stage(models, monkeypatch):
+    """The decode kernel picks its bf16 routine by the stage its caller
+    names: every prefill, a one-token prompt's too, says ``prefill=True``
+    in serving (a bucket-wide chunk) and in ``generate()`` (the exact
+    length), and every decode step is one query a lane without it."""
+    from deepspeed_tpu_torch.kernels import decode_attention as da
+
+    _, _, cfg, model = models
+    calls = []
+    real = da.decode_attend
+
+    def spy(q, *args, prefill=False, **kw):
+        calls.append((q.shape[1], prefill))
+        return real(q, *args, prefill=prefill, **kw)
+
+    monkeypatch.setattr(da, "decode_attend", spy)
+    monkeypatch.setattr(kernels, "decode_attend", spy)
+    L = cfg.num_hidden_layers
+    prompt = [7]
+    want = _oneshot(model, cfg, prompt, 3, "pallas_decode")
+    assert calls[:L] == [(1, True)] * L               # the one-token prefill
+    assert set(calls[L:]) == {(1, False)} and len(calls) == 3 * L
+    calls.clear()
+    eng = _engine(model, cfg, attention_impl="pallas_decode")
+    fut = eng.submit(prompt, max_new_tokens=3)
+    eng.drain(max_steps=50)
+    assert list(fut.result(timeout=1)) == want
+    assert calls[:L] == [(2, True)] * L               # the smallest bucket
+    assert set(calls[L:]) == {(1, False)}
