@@ -9,13 +9,17 @@ prints no result line):
 2. hold each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes (decode, a two-query chunk, a chunk
    that is no multiple of the query tile, a 512-token prefill chunk; fp32,
-   bf16 and int8 pages; and, untimed, head dim 128 with 48-token pages and
-   head dim 64 with 5-token pages), and time kernel, plain version, one PyTorch
-   library call computing the same attention (a yardstick only), and the
-   least time the card could take (the bound); then show bit for bit that
-   a query's output does not depend on the batch, the table width or the
-   chunk around it, and that a one-token prompt's prefill alone equals its
-   row of a bucket-wide prefill chunk;
+   bf16 and int8 pages; band attention for 8 and 1024 queries; and,
+   untimed, head dim 128 with 48-token pages and head dim 64 with 5-token
+   pages for decode, head dims 64 and 128 with 128- and 48-token pages for
+   the band, there with queries at position 0, inside the first page and
+   at a page's first and last tokens), and time kernel, plain version, one
+   PyTorch library call computing the same attention (a yardstick only),
+   and the least time the card could take (the bound); then show bit for
+   bit that a query's output does not depend on the batch, the table
+   width or the chunk around it (for the band: a query alone equals its
+   row among 8 and among all the case's queries), and that a one-token
+   prompt's prefill alone equals its row of a bucket-wide prefill chunk;
 3. serve GPT-2 XL at full width (random weights from seed 0, bf16) with
    the continuous-batching engine on the kernel backends, and show that
    both kernels launched;
@@ -25,9 +29,9 @@ prints no result line):
    against their plain versions at the BERT-large training shapes (bf16
    and fp32, padded keys, causal, a block-16 sparse layout with an empty
    row, dropout 0.1 on the same Philox bits; head dims 128 and 32 and
-   longer sequences in blocks of 64 and 32 once each, forward timed only),
-   and time them as phase 2 does, with ``scaled_dot_product_attention``
-   and its backward as the yardsticks;
+   longer sequences in blocks of 64 and 32 once each, there with the
+   forward and dk/dv timed), and time them as phase 2 does, with
+   ``scaled_dot_product_attention`` and its backward as the yardsticks;
 6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
    ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
    dropout 0.1) on one repeated random batch, show that all three flash
@@ -290,18 +294,74 @@ def decode_invariance(args, label):
     return checks
 
 
+def _band_inputs(N, dtype_name, shape=None, positions=None, seed=None):
+    """Queries, window and sink slices, positions and window bases for one
+    band-kernel case; ``shape`` is (heads, head dim, page tokens), and
+    ``positions`` (else random over 8 pages) the queries' positions."""
+    from deepspeed_tpu_torch.kernels import sparse_attention as sa
+
+    nh, hd, pt = shape or (NH, HD, PT)
+    dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(2000 + N if seed is None else seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    q, kw, vw = rnd(N, nh, hd), rnd(N, nh, 2 * pt, hd), rnd(N, nh, 2 * pt, hd)
+    ksk, vsk = rnd(N, nh, pt, hd), rnd(N, nh, pt, hd)
+    if positions is None:
+        pos = torch.randint(0, MP * pt, (N,), generator=gen, device="cuda")
+    else:
+        pos = torch.tensor(positions, device="cuda")
+    base = sa._window_base(pos, pt)
+    return (q, kw, vw, ksk, vsk, pos.to(torch.int32), base.to(torch.int32), dt)
+
+
+def band_invariance(args, label):
+    """Bit for bit: each of the first 8 queries alone equals its row among
+    the first 8 and among all N. Returns the number of comparisons."""
+    from deepspeed_tpu_torch.kernels import sparse_attention as sa
+
+    rows = lambda a, i, j: [t[i:j].contiguous() for t in a[:7]] + [a[7]]
+    full = sa._band_attend_cuda(*args)
+    eight = sa._band_attend_cuda(*rows(args, 0, 8))
+    checks = 0
+    for i in range(min(8, args[0].shape[0])):
+        alone = sa._band_attend_cuda(*rows(args, i, i + 1))
+        for other, n in ((eight, 8), (full, args[0].shape[0])):
+            if not torch.equal(alone[0], other[i]):
+                raise RuntimeError(f"sparse_attention {label}: query {i} alone differs "
+                                   f"from its row among {n}")
+            checks += 1
+    torch.cuda.synchronize()
+    return checks
+
+
+# band shapes the serving path does not use but the kernel takes, each with
+# queries at the edges of the mask: position 0, inside the first page
+# (base 0: no sink), the first token of a page, the last token of a page;
+# (heads, head dim, page tokens)
+BAND_ODD_SHAPES = ((NH, HD, PT), (4, 128, PT), (3, 64, 48), (2, 128, 48))
+
+
+def band_odd_case(dtype_name, shape):
+    """Kernel against plain version, and the bitwise invariance, for
+    queries at the mask's edges (checked, not timed)."""
+    from deepspeed_tpu_torch.kernels import sparse_attention as sa
+
+    pt = shape[2]
+    positions = [0, 1, pt - 1, pt, pt + 1, 2 * pt, 2 * pt - 1, 3 * pt, 5 * pt,
+                 MP * pt - 1, 7 * pt, 4 * pt + 3]
+    args = _band_inputs(len(positions), dtype_name, shape, positions, seed=2500 + pt)
+    label = f"{dtype_name} shape={shape} edges"
+    err, _ = _check(f"sparse_attention {label}", sa._band_attend_cuda(*args),
+                    sa._band_attend_torch(*args), TOL[dtype_name])
+    return dict(case=label, max_abs_err=err, tol=TOL[dtype_name],
+                invariance=band_invariance(args, label))
+
+
 def band_case(timer, N, dtype_name):
     from deepspeed_tpu_torch.kernels import sparse_attention as sa
 
-    dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(2000 + N)
-    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
-    q, kw, vw = rnd(N, NH, HD), rnd(N, NH, W, HD), rnd(N, NH, W, HD)
-    ksk, vsk = rnd(N, NH, PT, HD), rnd(N, NH, PT, HD)
-    pos = torch.randint(0, MP * PT, (N,), generator=gen, device="cuda")
-    base = sa._window_base(pos, PT)
-    pos, base = pos.to(torch.int32), base.to(torch.int32)
-    args = (q, kw, vw, ksk, vsk, pos, base, dt)
+    args = _band_inputs(N, dtype_name)
+    q, kw, vw, ksk, vsk, pos, base, dt = args
     got = sa._band_attend_cuda(*args)
     want = sa._band_attend_torch(*args)
     err, out_absmax = _check(f"sparse_attention N={N} {dtype_name}", got, want,
@@ -326,7 +386,8 @@ def band_case(timer, N, dtype_name):
     return dict(case=f"N={N} {dtype_name}", max_abs_err=err, out_absmax=out_absmax,
                 tol=TOL[dtype_name],
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by,
+                invariance=band_invariance(args, f"N={N} {dtype_name}") if N > 8 else 0)
 
 
 def _prompts():
@@ -544,10 +605,10 @@ def _flash_work(lut, counts, qlut, qcounts, block, causal, elem, FD=FD, FB=FB, F
 
 
 def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
-               sparse=False, FD=FD, FB=FB, FS=FS, block=None, forward_only=False):
+               sparse=False, FD=FD, FB=FB, FS=FS, block=None, timed=("fwd", "dq", "dkv")):
     """Kernels 1-3 against their plain versions on one input set, with
-    times, bounds and the SDPA yardsticks; ``forward_only`` checks all
-    three but times the forward and its yardstick alone."""
+    times, bounds and the SDPA yardsticks; all three are checked, the
+    kernels named in ``timed`` are timed."""
     from deepspeed_tpu_torch.ops.transformer import attention as fa
 
     dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
@@ -608,20 +669,16 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
     lib_fwd = timer(sdpa)
+    o_lib = sdpa()
+    lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
     work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size(), FD, FB, FS)
     res = {}
-    if forward_only:
-        bound_ms, bound_by = _bound(*work["fwd"], dt)
-        res["fwd"] = dict(ms=timer(calls["fwd"][0]), library_ms=lib_fwd,
-                          bound_ms=bound_ms, bound_by=bound_by)
-    else:
-        o_lib = sdpa()
-        lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
-        for kind, (kern, plain) in calls.items():
-            bound_ms, bound_by = _bound(*work[kind], dt)
-            res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
-                             library_ms=lib_fwd if kind == "fwd" else lib_bwd,
-                             bound_ms=bound_ms, bound_by=bound_by)
+    for kind in timed:
+        kern, plain = calls[kind]
+        bound_ms, bound_by = _bound(*work[kind], dt)
+        res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
+                         library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                         bound_ms=bound_ms, bound_by=bound_by)
     return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal,
                 dropout=rate, tol=tol, max_abs_err=errs, kernels=res)
 
@@ -731,6 +788,8 @@ def phase_kernels(timer):
                     for kv in ("fp32", "bf16", "int8")]
     band_cases = [_report("case", band_case(timer, N, dt)) for N in (8, 8 * PT)
                   for dt in ("fp32", "bf16")]
+    band_cases += [_report("case", band_odd_case(dt, shape)) for shape in BAND_ODD_SHAPES
+                   for dt in ("fp32", "bf16")]
     odd_cases = [_report("case", decode_odd_case(C, kv, shape)) for shape in ODD_SHAPES
                  for C in (1, 5, 70) for kv in ("fp32", "bf16", "int8")]
     odd_cases += [_report("case", decode_one_token_prefill(kv, shape))
@@ -749,13 +808,14 @@ def phase_flash(timer):
         dict(label="fp32 causal dropout0.1", dtype_name="fp32", causal=True, rate=0.1),
         # the tile code differs by head dim
         dict(label="bf16 D128 causal dropout0.1", dtype_name="bf16", causal=True, rate=0.1,
-             FD=128, forward_only=True),
-        dict(label="bf16 D32 padded", dtype_name="bf16", FD=32, forward_only=True),
-        # several LUT blocks a row: the K/V ring runs with both stages
+             FD=128, timed=("fwd", "dkv")),
+        dict(label="bf16 D32 padded", dtype_name="bf16", FD=32, timed=("fwd", "dkv")),
+        # several LUT blocks a row or column: the forward's K/V ring runs with
+        # both stages, dk/dv walks several query blocks
         dict(label="bf16 S512 block64 causal dropout0.1", dtype_name="bf16", causal=True,
-             rate=0.1, FB=8, FS=512, block=64, forward_only=True),
+             rate=0.1, FB=8, FS=512, block=64, timed=("fwd", "dkv")),
         dict(label="bf16 S256 block32 padded", dtype_name="bf16", FB=8, FS=256, block=32,
-             forward_only=True),
+             timed=("fwd", "dkv")),
     )
     return [_report("flash_case", flash_case(timer, **c)) for c in cases]
 GRAD_TOL = 1e-4   # relative to each gradient's largest magnitude: fp32, same masks

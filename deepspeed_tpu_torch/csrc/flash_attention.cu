@@ -22,9 +22,9 @@
 // What bounds it on the H100: at the training shapes (S = 128, D = 64) each
 // (batch, head) reads 4 S x D tiles and does ~4 S^2 D flops per product, about
 // 32 flops per byte in bf16, far below the tensor cores' ridge (~295): on the
-// tensor cores the forward is bound by bytes. On the fp32 CUDA cores (ridge
-// ~20) the same work is bound by operations; that is where the fp32 forward
-// and both backward kernels still run.
+// tensor cores the forward and dk/dv are bound by bytes. On the fp32 CUDA
+// cores (ridge ~20) the same work is bound by operations; that is where the
+// fp32 kernels and dq still run.
 //
 // Design of the bf16 forward (`flash_fwd_mma_kernel`). One block per
 // (batch*head, LUT block): the TPU's sequential grid of key blocks becomes a
@@ -49,7 +49,32 @@
 // bits as before. The output goes back through the warp's rows of the Q tile
 // so that it is stored 16 bytes a thread.
 //
-// The fp32 forward and the backward kernels: D/32 neighbouring threads share a
+// Design of the bf16 dk/dv/db (`flash_bwd_dkv_mma_kernel`). Its bound is
+// bytes: at the main case (B = 64, H = 16, S = 128, D = 64, one LUT block)
+// q, k, v and dO are read and dk and dv written once, ~102 MB with lse,
+// delta, the bias and db, 0.0305 ms at 3.35 TB/s, against 8.6 GFLOP of
+// products (0.009 ms on the tensor cores). So the products must leave the
+// CUDA cores, and every tile must cross device memory once. One block per
+// (batch*head, key block) walks the transposed LUT's query blocks; each warp
+// owns 16 key rows. K and V arrive once, Q, dO, lse and delta once per query
+// block (cp.async, rows padded as in the forward; Q in the first copy group,
+// dO in the second, under the first Sᵀ product). Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+// run on mma.sync with fp32 accumulators, so a key row's scores lie in its
+// warp's registers: p = exp(s - lse), the keep mask, ds = p (dp - delta) and
+// the row sums of ds (db, unrounded) are taken there, and the bf16-rounded
+// p_drop and ds fragments are the A operands of dV += Pᵀ dO and dK += dSᵀ Q
+// (dO and Q as B operands through ldmatrix .trans), the forward's trick. The
+// backward knows lse, so a query block's slabs of 32 queries are
+// independent: a thread holds dk and dv of its rows and one slab's Sᵀ and dPᵀ
+// (a D = 64 block of 128 keys fits two blocks an SM). dk and dv stay in
+// registers over the LUT and leave through the warp's own K and V tile rows,
+// 16 bytes a thread: no atomics, the same bits whatever the schedule. In the
+// transposed accumulator the four keys of one Philox call lie in four lanes
+// (row-groups g..g+3 of a column pair); each makes one of the n-tile's four
+// calls and three xor shuffles swap the words (`exchange_words`): one call
+// per four elements, `_dropout_keep`'s bits.
+//
+// The fp32 kernels and the dq kernel: D/32 neighbouring threads share a
 // query (or, in dk/dv, a key) row, each holding 32 of its D values in
 // registers as eight float4 chunks interleaved across the row's threads, so a
 // warp reads a staged tile row from shared memory as a broadcast without bank
@@ -281,6 +306,17 @@ struct FwdLayout {
   static constexpr int smem_bytes(int stages) { return kTileBytes + stages * kStageBytes; }
 };
 
+// a BLOCK x D bf16 tile from device memory into shared-memory rows padded
+// by 16 bytes (FwdLayout::kStride), 16 bytes a thread by cp.async
+template <int BLOCK, int D, int THREADS>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const __nv_bfloat16* src) {
+  constexpr int CPR = D / 8, STRIDE = FwdLayout<BLOCK, D>::kStride;
+  for (int e = threadIdx.x; e < BLOCK * CPR; e += THREADS) {
+    const int r = e / CPR, ch = e % CPR;
+    cp_async16(smem_u32(dst + (r * STRIDE + ch * 8) * 2), src + r * D + ch * 8, 16);
+  }
+}
+
 // Two thread blocks an SM up to D = 64 (128 registers a thread at block 128,
 // a few words spilled): one block's loads then run under the other's
 // products, which measured faster than one block with every value in
@@ -322,10 +358,7 @@ flash_fwd_mma_kernel(const Params P) {
   }
 
   auto load_tile = [&](unsigned char* dst, const __nv_bfloat16* src) {
-    for (int e = tid; e < BLOCK * CPR; e += THREADS) {
-      const int r = e / CPR, ch = e % CPR;
-      cp_async16(smem_u32(dst + (r * STRIDE + ch * 8) * 2), src + r * D + ch * 8, 16);
-    }
+    copy_tile<BLOCK, D, THREADS>(dst, src);
   };
   auto load_bias = [&](unsigned char* stage, int k0) {
     for (int e = tid; e < BLOCK / 4; e += THREADS)
@@ -634,14 +667,281 @@ flash_bwd_dkv_kernel(const Params P) {
   if (sub == 0) P.out2[static_cast<size_t>(bh) * S + kpos] = db;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv/db on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int BLOCK, int D>
+struct DkvLayout {
+  static constexpr int kStride = FwdLayout<BLOCK, D>::kStride;
+  static constexpr int kTileBytes = FwdLayout<BLOCK, D>::kTileBytes;
+  // K, V, Q, dO tiles | key bias, lse, delta (fp32)
+  static constexpr int kSmemBytes = 4 * kTileBytes + 3 * BLOCK * 4;
+};
+
+// the four Philox words of an n-tile's elements. Element e of a thread
+// (key row r0 + 8 (e >> 1), query c + (e & 1)) takes word g of call e,
+// where g = (lane >> 2) & 3 is the row's place in its key quad. The four
+// lanes that differ in g (lane bits 2, 3) make the tile's four calls, one
+// each (call g), and swap words by xor shuffles: in round k a lane sends
+// word g ^ k of its call and gets word g of call g ^ k.
+__device__ __forceinline__ void exchange_words(uint32_t (&w)[4], const uint4& bits, int g) {
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, word(bits, g ^ 1), 4);
+  const uint32_t got2 = __shfl_xor_sync(0xffffffffu, word(bits, g ^ 2), 8);
+  const uint32_t got3 = __shfl_xor_sync(0xffffffffu, word(bits, g ^ 3), 12);
+  const uint32_t own = word(bits, g);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int k = e ^ g;
+    w[e] = k == 0 ? own : k == 1 ? got1 : k == 2 ? got2 : got3;
+  }
+}
+
+// One thread block per (batch*head, key block), a warp per 16 key rows;
+// the transposed products Sᵀ = K Qᵀ and dPᵀ = V dOᵀ leave the scores of a
+// key row in the accumulator registers of its warp, whose rounded
+// fragments are the A operands of dV += Pᵀ dO and dK += dSᵀ Q. The query
+// block is walked in slabs of 32 queries (p needs no running max), so a
+// thread holds dk and dv (D / 2 values each) and two 16 x 32 score tiles.
+template <int BLOCK, int D>
+__global__ void __launch_bounds__(BLOCK * 2, D <= 64 ? 2 : 1)
+flash_bwd_dkv_mma_kernel(const Params P) {
+  using Lay = DkvLayout<BLOCK, D>;
+  constexpr int THREADS = BLOCK * 2;
+  constexpr int STRIDE = Lay::kStride;
+  constexpr int CPR = D / 8;                   // 16-byte chunks per row
+  constexpr int QS = BLOCK < 32 ? BLOCK : 32;  // queries a slab
+  constexpr int NT = QS / 8;                   // score n-tiles of a slab
+  constexpr int DT = D / 8;                    // dk / dv n-tiles
+  const int bh = blockIdx.x, kj = blockIdx.y, nkb = gridDim.y;
+  const int h = bh % P.H, b = bh / P.H, S = P.S, k0 = kj * BLOCK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, mat = lane >> 3;
+  extern __shared__ float4 smem4[];
+  unsigned char* sK = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* sV = sK + Lay::kTileBytes;
+  unsigned char* sQ = sV + Lay::kTileBytes;
+  unsigned char* sO = sQ + Lay::kTileBytes;
+  float* sB = reinterpret_cast<float*>(sO + Lay::kTileBytes);
+  float* sL = sB + BLOCK;
+  float* sDl = sL + BLOCK;
+
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(P.q) + base;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(P.dout) + base;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(P.k) + base + static_cast<size_t>(k0) * D;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(P.v) + base + static_cast<size_t>(k0) * D;
+  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(P.out0) + base + static_cast<size_t>(k0) * D;
+  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(P.out1) + base + static_cast<size_t>(k0) * D;
+  float* db = P.out2 + static_cast<size_t>(bh) * S + k0;
+  const float* lse = P.lse + static_cast<size_t>(bh) * S;
+  const float* delta = P.delta + static_cast<size_t>(bh) * S;
+  const int* qlut = P.lut + (static_cast<size_t>(h) * nkb + kj) * P.maxn;
+  const int count = P.counts[h * nkb + kj];
+
+  if (count == 0) {  // no query block sees these keys
+    for (int e = tid; e < BLOCK * CPR; e += THREADS) {
+      reinterpret_cast<uint4*>(dk)[e] = make_uint4(0u, 0u, 0u, 0u);
+      reinterpret_cast<uint4*>(dv)[e] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int r = tid; r < BLOCK; r += THREADS) db[r] = 0.f;
+    return;
+  }
+
+  auto load_tile = [&](unsigned char* dst, const __nv_bfloat16* src) {
+    copy_tile<BLOCK, D, THREADS>(dst, src);
+  };
+  auto load_vec = [&](float* dst, const float* src) {
+    for (int e = tid; e < BLOCK / 4; e += THREADS) cp_async16(smem_u32(dst + e * 4), src + e * 4, 16);
+  };
+  // a query block in two copy groups: Q and lse first, then dO and delta,
+  // which land under the Sᵀ product of the first slab; K and the bias join
+  // the first block's first group, V its second
+  auto load_q = [&](int q0) {
+    load_tile(sQ, q + static_cast<size_t>(q0) * D);
+    load_vec(sL, lse + q0);
+    cp_async_commit();
+  };
+  auto load_do = [&](int q0) {
+    load_tile(sO, dout + static_cast<size_t>(q0) * D);
+    load_vec(sDl, delta + q0);
+    cp_async_commit();
+  };
+  load_tile(sK, k);
+  load_vec(sB, P.bias + b * S + k0);
+  load_q(qlut[0] * BLOCK);
+  load_tile(sV, v);
+  load_do(qlut[0] * BLOCK);
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
+  const int kpos0 = k0 + r0, kpos1 = kpos0 + 8;
+  const int quad = lane & 3, g = (lane >> 2) & 3;
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+  float db0 = 0.f, db1 = 0.f;  // this thread's columns of rows r0, r0 + 8
+
+  for (int n = 0; n < count; ++n) {
+    const int qi = qlut[n], q0 = qi * BLOCK;
+    if (n > 0) {
+      __syncthreads();  // every warp is done with the previous Q and dO
+      load_q(q0);
+      load_do(q0);
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const float bias0 = sB[r0], bias1 = sB[r0 + 8];
+    // only a query block that starts before the key block's last row can
+    // hold a causally masked pair
+    const bool diagonal = P.causal && q0 < k0 + BLOCK - 1;
+
+#pragma unroll 1
+    for (int sl = 0; sl < BLOCK / QS; ++sl) {
+      const int cb = sl * QS;
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      // Sᵀ = K Qᵀ (keys are the rows, queries the columns)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_u32(sK + ((warp * 16 + (lane & 7) + (mat & 1) * 8) * STRIDE +
+                                       kk * 16 + (mat >> 1) * 8) * 2));
+#pragma unroll
+        for (int tp = 0; tp < NT / 2; ++tp) {
+          const int qr = cb + tp * 16 + (mat >> 1) * 8 + (lane & 7);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_u32(sQ + (qr * STRIDE + kk * 16 + (mat & 1) * 8) * 2));
+          mma_bf16(s[2 * tp], af, bf[0], bf[1]);
+          mma_bf16(s[2 * tp + 1], af, bf[2], bf[3]);
+        }
+      }
+      if (sl == 0) {  // dO and delta
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      // dPᵀ = V dOᵀ
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_u32(sV + ((warp * 16 + (lane & 7) + (mat & 1) * 8) * STRIDE +
+                                       kk * 16 + (mat >> 1) * 8) * 2));
+#pragma unroll
+        for (int tp = 0; tp < NT / 2; ++tp) {
+          const int qr = cb + tp * 16 + (mat >> 1) * 8 + (lane & 7);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_u32(sO + (qr * STRIDE + kk * 16 + (mat & 1) * 8) * 2));
+          mma_bf16(dp[2 * tp], af, bf[0], bf[1]);
+          mma_bf16(dp[2 * tp + 1], af, bf[2], bf[3]);
+        }
+      }
+
+      // p, the keep mask, ds and the rounded A operands; thread holds
+      // columns (queries) c, c + 1 of key rows r0 (e = 0, 1) and r0 + 8 (2, 3)
+      uint32_t pa[NT][2], da[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int c = cb + t * 8 + quad * 2;
+        const float2 l = *reinterpret_cast<const float2*>(sL + c);
+        const float2 dl = *reinterpret_cast<const float2*>(sDl + c);
+        float p[4], d[4], pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + c + (e & 1);
+          const float sc = masked_score(s[t][e], P.scale, e < 2 ? bias0 : bias1,
+                                        diagonal && qpos < (e < 2 ? kpos0 : kpos1));
+          p[e] = __expf(sc - ((e & 1) ? l.y : l.x));
+          pd[e] = p[e];
+          d[e] = dp[t][e];
+        }
+        if (P.dropout) {
+          // call g: query c + (g & 1), the key quad of row r0 + 8 (g >> 1)
+          const uint4 bits = philox4x32_10(make_uint4(qi, kj, c + (g & 1), (r0 >> 2) + (g & 2)),
+                                           make_uint2(P.seed, bh));
+          uint32_t w[4];
+          exchange_words(w, bits, g);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool keep = w[e] >= P.threshold;
+            pd[e] = keep ? p[e] * P.keep_scale : 0.f;
+            d[e] = keep ? d[e] * P.keep_scale : 0.f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[e] = p[e] * (d[e] - ((e & 1) ? dl.y : dl.x));
+        db0 += ds[0] + ds[1];
+        db1 += ds[2] + ds[3];
+        pa[t][0] = pack_bf16(pd[0], pd[1]);
+        pa[t][1] = pack_bf16(pd[2], pd[3]);
+        da[t][0] = pack_bf16(ds[0], ds[1]);
+        da[t][1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += Pᵀ dO and dK += dSᵀ Q over the slab's queries
+#pragma unroll
+      for (int ks = 0; ks < QS / 16; ++ks) {
+        const uint32_t ap[4] = {pa[2 * ks][0], pa[2 * ks][1], pa[2 * ks + 1][0],
+                                pa[2 * ks + 1][1]};
+        const uint32_t ad[4] = {da[2 * ks][0], da[2 * ks][1], da[2 * ks + 1][0],
+                                da[2 * ks + 1][1]};
+        const int qr = cb + ks * 16 + (mat & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          const int col = dp2 * 16 + (mat >> 1) * 8;
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, smem_u32(sO + (qr * STRIDE + col) * 2));
+          mma_bf16(dva[2 * dp2], ap, bf[0], bf[1]);
+          mma_bf16(dva[2 * dp2 + 1], ap, bf[2], bf[3]);
+          ldmatrix_x4_trans(bf, smem_u32(sQ + (qr * STRIDE + col) * 2));
+          mma_bf16(dka[2 * dp2], ad, bf[0], bf[1]);
+          mma_bf16(dka[2 * dp2 + 1], ad, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // dk * scale and dv through the warp's own rows of the K and V tiles
+  // (no other warp reads them), then 16 bytes a thread
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + quad * 2;
+    *reinterpret_cast<uint32_t*>(sK + (r0 * STRIDE + col) * 2) =
+        pack_bf16(dka[d][0] * P.scale, dka[d][1] * P.scale);
+    *reinterpret_cast<uint32_t*>(sK + ((r0 + 8) * STRIDE + col) * 2) =
+        pack_bf16(dka[d][2] * P.scale, dka[d][3] * P.scale);
+    *reinterpret_cast<uint32_t*>(sV + (r0 * STRIDE + col) * 2) = pack_bf16(dva[d][0], dva[d][1]);
+    *reinterpret_cast<uint32_t*>(sV + ((r0 + 8) * STRIDE + col) * 2) =
+        pack_bf16(dva[d][2], dva[d][3]);
+  }
+  db0 = quad_sum(db0);
+  db1 = quad_sum(db1);
+  if (quad == 0) {
+    db[r0] = db0;
+    db[r0 + 8] = db1;
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = warp * 16 + e / CPR, ch = e % CPR;
+    *reinterpret_cast<uint4*>(dk + r * D + ch * 8) =
+        *reinterpret_cast<const uint4*>(sK + (r * STRIDE + ch * 8) * 2);
+    *reinterpret_cast<uint4*>(dv + r * D + ch * 8) =
+        *reinterpret_cast<const uint4*>(sV + (r * STRIDE + ch * 8) * 2);
+  }
+}
+
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
-  void (*kernel)(const Params) =
-      kind == kDq ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
-  if constexpr (sizeof(T) == 4) {  // the bf16 forward is flash_fwd_mma_kernel
+  void (*kernel)(const Params) = flash_bwd_dq_kernel<T, D>;
+  if constexpr (sizeof(T) == 4) {  // bf16 forward and dk/dv run on the tensor cores
     if (kind == kFwd) kernel = flash_fwd_kernel<T, D>;
+    if (kind == kDkv) kernel = flash_bwd_dkv_kernel<T, D>;
   }
   const size_t smem = sizeof(float) * (2 * P.block * D + 2 * P.block);
   cudaError_t err = cudaFuncSetAttribute(
@@ -652,10 +952,13 @@ cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
 }
 
 template <int BLOCK, int D>
-cudaError_t launch_fwd_mma(const Params& P, int BH, cudaStream_t stream) {
-  auto kernel = flash_fwd_mma_kernel<BLOCK, D>;
-  // the second stage is only ever filled when a row has more than one LUT block
-  const int smem = FwdLayout<BLOCK, D>::smem_bytes(P.maxn > 1 ? 2 : 1);
+cudaError_t launch_mma(Kind kind, const Params& P, int BH, cudaStream_t stream) {
+  void (*kernel)(const Params) = kind == kFwd ? flash_fwd_mma_kernel<BLOCK, D>
+                                              : flash_bwd_dkv_mma_kernel<BLOCK, D>;
+  // the forward's second stage is only ever filled when a row has more than
+  // one LUT block
+  const int smem = kind == kFwd ? FwdLayout<BLOCK, D>::smem_bytes(P.maxn > 1 ? 2 : 1)
+                                : DkvLayout<BLOCK, D>::kSmemBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -664,23 +967,23 @@ cudaError_t launch_fwd_mma(const Params& P, int BH, cudaStream_t stream) {
 }
 
 template <int D>
-cudaError_t dispatch_fwd_mma(const Params& P, int BH, cudaStream_t stream) {
-  if (P.block == 16) return launch_fwd_mma<16, D>(P, BH, stream);
-  if (P.block == 32) return launch_fwd_mma<32, D>(P, BH, stream);
-  if (P.block == 64) return launch_fwd_mma<64, D>(P, BH, stream);
-  if (P.block == 128) return launch_fwd_mma<128, D>(P, BH, stream);
+cudaError_t dispatch_mma(Kind kind, const Params& P, int BH, cudaStream_t stream) {
+  if (P.block == 16) return launch_mma<16, D>(kind, P, BH, stream);
+  if (P.block == 32) return launch_mma<32, D>(kind, P, BH, stream);
+  if (P.block == 64) return launch_mma<64, D>(kind, P, BH, stream);
+  if (P.block == 128) return launch_mma<128, D>(kind, P, BH, stream);
   return cudaErrorInvalidValue;
 }
 
-// the bf16 forward runs on the tensor cores; the fp32 forward and both
-// backward kernels on the fp32 CUDA cores
+// the bf16 forward and dk/dv run on the tensor cores; dq and every fp32
+// kernel on the fp32 CUDA cores (fp32 holds 1e-5, which TF32 cannot)
 template <typename T>
 cudaError_t dispatch_d(Kind kind, int D, const Params& P, int BH, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (kind == kFwd) {
-      if (D == 32) return dispatch_fwd_mma<32>(P, BH, stream);
-      if (D == 64) return dispatch_fwd_mma<64>(P, BH, stream);
-      if (D == 128) return dispatch_fwd_mma<128>(P, BH, stream);
+    if (kind != kDq) {
+      if (D == 32) return dispatch_mma<32>(kind, P, BH, stream);
+      if (D == 64) return dispatch_mma<64>(kind, P, BH, stream);
+      if (D == 128) return dispatch_mma<128>(kind, P, BH, stream);
       return cudaErrorInvalidValue;
     }
   }

@@ -111,6 +111,10 @@ def _band_attend_cuda(q, k_win, v_win, k_sink, v_sink, pos, base, dtype):
             raise ValueError(f"band_attend: tensor on {t.device}, query on {dev}")
         if not t.is_contiguous():
             raise ValueError("band_attend: every input must be contiguous")
+    for t in (q, k_win, v_win, k_sink, v_sink):
+        if t.data_ptr() % 16:
+            raise ValueError("band_attend: the kernel reads 16 bytes at a time; every "
+                             "query, key and value tensor must start on a 16-byte boundary")
     out = torch.empty_like(q)
     scale = float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=dtype)))
     lib = build.load_library()

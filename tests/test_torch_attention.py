@@ -270,3 +270,55 @@ def test_mma_lane_map_and_philox_pairing_reproduce_dropout_keep(warp):
     got = _mma_tile_keep(seed, bh, qi, kj, warp, block, rate)
     assert torch.equal(got, want[16 * warp:16 * warp + 16])
     assert 0.85 < float(got.float().mean()) < 0.95
+
+
+def _dkv_tile_keep(seed, bh, qi, kj, warp, block, rate):
+    """The bf16 dk/dv kernel's keep mask of warp ``warp``'s 16 key rows
+    against the block's queries, rebuilt from its transposed lane map and
+    word exchange: in the Sᵀ accumulator lane t holds key rows
+    r0 = 16 warp + t / 4 and r0 + 8 and queries c = 8 nt + 2 (t % 4) + {0,
+    1}. The four keys of a Philox call (a key quad) lie in the four lanes
+    whose row group g = (t / 4) % 4 differs: lane g makes call g of the
+    n-tile (query c + (g & 1), the key quad of row r0 + 8 (g >> 1)), and
+    in round k = 1, 2, 3 sends word g ^ k of its call to lane t ^ 4k
+    (``__shfl_xor``), receiving word g of call g ^ k. Element e (row
+    r0 + 8 (e >> 1), query c + (e & 1)) takes word g of call e. Returns
+    (bool [16 keys, block queries], Philox calls made, times each element
+    was written)."""
+    thr = T._dropout_threshold(rate)
+    lane = torch.arange(32)
+    g = (lane >> 2) & 3
+    r0 = 16 * warp + (lane >> 2)
+    keep = torch.zeros(16, block, dtype=torch.bool)
+    written = torch.zeros(16, block, dtype=torch.long)
+    calls = 0
+    for nt in range(block // 8):
+        c = nt * 8 + (lane & 3) * 2
+        words = T.philox4x32((qi, kj, c + (g & 1), (r0 >> 2) + (g & 2)), (seed, bh))
+        bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)      # [lane, word]
+        calls += 32
+        got = {k: bits[lane, g ^ k][lane ^ (k << 2)] for k in (1, 2, 3)}
+        own = bits[lane, g]
+        for e in range(4):
+            k = e ^ g
+            w = torch.where(k == 0, own, torch.where(k == 1, got[1],
+                                                     torch.where(k == 2, got[2], got[3])))
+            rows = (lane >> 2) + 8 * (e >> 1)
+            keep[rows, c + (e & 1)] = w >= thr
+            written[rows, c + (e & 1)] += 1
+    return keep, calls, written
+
+
+@pytest.mark.parametrize("warp", [0, 3, 7])
+def test_dkv_lane_map_and_philox_exchange_reproduce_dropout_keep(warp):
+    """The dk/dv kernel's transposed 16-key x 128-query slab of a warp
+    draws exactly ``_dropout_keep``'s bits (transposed) through its lane
+    map and xor-shuffle word exchange, with one Philox call per four
+    elements and every element written once."""
+    seed, bh, qi, kj, block, rate = 4321, 37, 2, 5, 128, 0.1
+    want = T._dropout_keep(seed, bh, qi, kj, block, block, rate, "cpu") > 0  # [query, key]
+    got, calls, written = _dkv_tile_keep(seed, bh, qi, kj, warp, block, rate)
+    assert torch.equal(got, want[:, 16 * warp:16 * warp + 16].T)
+    assert torch.equal(written, torch.ones_like(written))
+    assert calls * 4 == got.numel()
+    assert 0.85 < float(got.float().mean()) < 0.95

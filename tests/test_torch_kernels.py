@@ -199,6 +199,51 @@ def test_band_attend_bf16():
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
 
+def _band_torch(case, dtype):
+    ts = [torch.from_numpy(a) for a in case]
+    return tkernels.band_attend(*[t.to(dtype) for t in ts[:5]], *ts[5:], dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("null_sink", [False, True])
+def test_band_plain_version_ignores_masked_keys(null_sink, dtype):
+    """The plain version's output does not change, bit for bit, when the
+    K and V rows of masked keys (window keys after the query's position;
+    the whole sink page when base == 0) hold other finite values: the
+    CUDA kernel never loads those rows."""
+    case = _band_case(null_sink)
+    q, kw, vw, ks, vs, pos, base = case
+    W, pt = kw.shape[2], ks.shape[2]
+    rng = np.random.RandomState(29)
+    kw2, vw2, ks2, vs2 = (a.copy() for a in (kw, vw, ks, vs))
+    for i in range(q.shape[0]):
+        late = base[i] + np.arange(W) > pos[i]
+        kw2[i][:, late] = 100.0 * rng.randn(kw.shape[1], int(late.sum()), kw.shape[3])
+        vw2[i][:, late] = 100.0 * rng.randn(vw.shape[1], int(late.sum()), vw.shape[3])
+        hidden = np.arange(pt) >= base[i]
+        ks2[i][:, hidden] = 100.0 * rng.randn(ks.shape[1], int(hidden.sum()), ks.shape[3])
+        vs2[i][:, hidden] = 100.0 * rng.randn(vs.shape[1], int(hidden.sum()), vs.shape[3])
+    assert not np.array_equal(kw, kw2)
+    if null_sink:
+        assert not np.array_equal(ks, ks2)
+    want = _band_torch(case, dtype)
+    got = _band_torch([q, kw2, vw2, ks2, vs2, pos, base], dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("null_sink", [False, True])
+def test_band_plain_version_is_query_invariant(null_sink, dtype):
+    """A query computed alone equals, bit for bit, its row among N: the
+    band's counterpart of the decode chunk invariance, which the served
+    == one-shot oracle rests on."""
+    case = _band_case(null_sink)
+    full = _band_torch(case, dtype)
+    for i in range(case[0].shape[0]):
+        alone = _band_torch([a[i:i + 1] for a in case], dtype)
+        assert torch.equal(alone[0], full[i])
+
+
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("C", [8, 3])        # a multiple of pt; k+1 wide
 def test_chunk_band_attend_matches_jax(C, impl):
