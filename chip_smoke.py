@@ -29,17 +29,17 @@ prints no result line):
    against their plain versions at the BERT-large training shapes (bf16
    and fp32, padded keys, causal, a block-16 sparse layout with an empty
    row, dropout 0.1 on the same Philox bits; head dims 128 and 32 and
-   longer sequences in blocks of 64 and 32 once each, there with the
-   forward and dk/dv timed), and time them as phase 2 does, with
-   ``scaled_dot_product_attention`` and its backward as the yardsticks;
+   longer sequences in blocks of 64 and 32 once each), and time them as
+   phase 2 does, with ``scaled_dot_product_attention`` and its backward
+   as the yardsticks (dq + dk/dv beside the whole backward);
 6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
    ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
    dropout 0.1) on one repeated random batch, show that all three flash
    kernels launched, that every loss is finite and that the loss falls,
-   and profile one step;
-7. at BERT-large width with 2 layers in fp32 and dropout 0.1, hold the
-   loss and every parameter's gradient on the kernels against the same
-   model with the plain attention versions swapped in.
+   and profile one step (bf16 dq must run on the tensor-core kernel);
+7. at BERT-large width with 2 layers and dropout 0.1, in fp32 and then in
+   bf16, hold the loss and every parameter's gradient on the kernels
+   against the same model with the plain attention versions swapped in.
 
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad) while
 a kernel is being worked on; such a run prints no result line.
@@ -605,10 +605,10 @@ def _flash_work(lut, counts, qlut, qcounts, block, causal, elem, FD=FD, FB=FB, F
 
 
 def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
-               sparse=False, FD=FD, FB=FB, FS=FS, block=None, timed=("fwd", "dq", "dkv")):
-    """Kernels 1-3 against their plain versions on one input set, with
-    times, bounds and the SDPA yardsticks; all three are checked, the
-    kernels named in ``timed`` are timed."""
+               sparse=False, FD=FD, FB=FB, FS=FS, block=None):
+    """Kernels 1-3 against their plain versions on one input set, each
+    with its time, bound and SDPA yardstick; dq + dk/dv together beside
+    SDPA's whole backward (PyTorch has no call that computes dq alone)."""
     from deepspeed_tpu_torch.ops.transformer import attention as fa
 
     dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
@@ -673,14 +673,14 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     lib_bwd = timer(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
     work = _flash_work(lut, counts, qlut, qcounts, block, causal, q.element_size(), FD, FB, FS)
     res = {}
-    for kind in timed:
-        kern, plain = calls[kind]
+    for kind, (kern, plain) in calls.items():
         bound_ms, bound_by = _bound(*work[kind], dt)
         res[kind] = dict(ms=timer(kern), plain_ms=timer(plain, iters=5, warmup=1),
                          library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                          bound_ms=bound_ms, bound_by=bound_by)
+    backward = dict(dq_plus_dkv_ms=res["dq"]["ms"] + res["dkv"]["ms"], library_ms=lib_bwd)
     return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal,
-                dropout=rate, tol=tol, max_abs_err=errs, kernels=res)
+                dropout=rate, tol=tol, max_abs_err=errs, kernels=res, backward=backward)
 
 
 def _bert_batch(cfg, batch, seq, seed=0):
@@ -729,6 +729,8 @@ def phase_train():
         raise RuntimeError(f"the loss did not fall on a repeated batch: {losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     profile = _profiled(lambda: engine.train_step([batch]))
+    if not any("flash_bwd_dq_mma_kernel" in k for k in profile["own_ms"]):
+        raise RuntimeError(f"bf16 dq did not run on the tensor cores: {profile['own_ms']}")
     res = dict(model="bert_large (seed 0), bf16 + fp32 masters, Adam lr 1e-4, ZeRO 0, "
                      "activation checkpointing 'dots', dropout 0.1/0.1",
                params=n_params, micro_batch=FB, seq=FS, warmup_steps=TRAIN_WARMUP,
@@ -746,24 +748,31 @@ def phase_train():
 
 
 class _PlainAttention:
-    """Swap the three flash kernel wrappers for their plain versions while
-    active (the grad oracle's reference run)."""
+    """Swap the flash kernel wrappers for their plain versions while
+    active (the grad oracle's reference run), all but those named in
+    ``keep`` (a subset of ``FLASH_KERNELS``)."""
+
+    NAMES = dict(zip(FLASH_KERNELS, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
+
+    def __init__(self, keep=()):
+        self.keep = keep
 
     def __enter__(self):
         from deepspeed_tpu_torch.ops.transformer import attention as fa
 
-        plain = lambda fn: (lambda *a, block, causal, rate=0.0, seed=0:
-                            fn(*a, block, causal, rate, seed))
-        self.saved = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-        fa.flash_fwd = plain(fa._flash_fwd_torch)
-        fa.flash_bwd_dq = plain(fa._flash_bwd_dq_torch)
-        fa.flash_bwd_dkv = plain(fa._flash_bwd_dkv_torch)
+        self.saved = {attr: getattr(fa, attr) for attr in self.NAMES.values()}
+        for kernel, attr in self.NAMES.items():
+            if kernel not in self.keep:
+                fn = getattr(fa, f"_{attr}_torch")
+                setattr(fa, attr, lambda *a, block, causal, rate=0.0, seed=0, fn=fn:
+                        fn(*a, block, causal, rate, seed))
         return self
 
     def __exit__(self, *exc):
         from deepspeed_tpu_torch.ops.transformer import attention as fa
 
-        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = self.saved
+        for attr, fn in self.saved.items():
+            setattr(fa, attr, fn)
 
 
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad")
@@ -808,29 +817,39 @@ def phase_flash(timer):
         dict(label="fp32 causal dropout0.1", dtype_name="fp32", causal=True, rate=0.1),
         # the tile code differs by head dim
         dict(label="bf16 D128 causal dropout0.1", dtype_name="bf16", causal=True, rate=0.1,
-             FD=128, timed=("fwd", "dkv")),
-        dict(label="bf16 D32 padded", dtype_name="bf16", FD=32, timed=("fwd", "dkv")),
-        # several LUT blocks a row or column: the forward's K/V ring runs with
-        # both stages, dk/dv walks several query blocks
+             FD=128),
+        dict(label="bf16 D32 padded", dtype_name="bf16", FD=32),
+        # several LUT blocks a row or column: the forward's and dq's K/V ring
+        # runs with both stages, dk/dv walks several query blocks
         dict(label="bf16 S512 block64 causal dropout0.1", dtype_name="bf16", causal=True,
-             rate=0.1, FB=8, FS=512, block=64, timed=("fwd", "dkv")),
-        dict(label="bf16 S256 block32 padded", dtype_name="bf16", FB=8, FS=256, block=32,
-             timed=("fwd", "dkv")),
+             rate=0.1, FB=8, FS=512, block=64),
+        dict(label="bf16 S256 block32 padded", dtype_name="bf16", FB=8, FS=256, block=32),
     )
     return [_report("flash_case", flash_case(timer, **c)) for c in cases]
-GRAD_TOL = 1e-4   # relative to each gradient's largest magnitude: fp32, same masks
 
 
-def phase_grad_oracle():
-    """BERT-large width, 2 layers, fp32, dropout 0.1, activation
-    checkpointing "dots": loss and every grad on the kernels against the
-    plain attention versions, at the same dropout seed (the same Philox
-    masks and the same hidden-dropout generators)."""
+# loss and each gradient, kernels against plain versions, relative to the
+# gradient's largest magnitude (the loss: to itself). fp32: the same fp32
+# math summed in another order, the same masks. bf16: both sides round p,
+# ds and the attention outputs to bf16, but in another summation order, so
+# an element can land one bf16 step (2^-8 of it) apart, and such flips
+# carry through two layers of bf16 GEMMs and layer norms; 2e-2 is five bf16
+# steps of the largest magnitude, FLASH_TOL's bound for one kernel.
+GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+
+
+def phase_grad_oracle(dtype_name):
+    """BERT-large width, 2 layers, dropout 0.1, activation checkpointing
+    "dots", weights in ``dtype_name``: loss and every grad on the kernels
+    against the plain attention versions, at the same dropout seed (the
+    same Philox masks and the same hidden-dropout generators)."""
     import deepspeed_tpu_torch as dt
 
+    dtype = torch.float32 if dtype_name == "fp32" else torch.bfloat16
+    tol = GRAD_TOL[dtype_name]
     cfg = dt.BertConfig.bert_large(num_hidden_layers=2, checkpoint_activations=True,
                                    checkpoint_policy="dots")
-    model = dt.init_bert(cfg, seed=0, device="cuda")
+    model = dt.init_bert(cfg, seed=0, device="cuda", dtype=dtype)
     batch = _bert_batch(cfg, 8, FS, seed=1)
 
     def run():
@@ -846,21 +865,39 @@ def phase_grad_oracle():
         raise RuntimeError("the kernel run of the grad oracle launched no flash kernel")
     with _PlainAttention():
         loss_p, grads_p = run()
-    worst = 0.0
-    for name, g in grads.items():
-        want = grads_p[name]
-        err = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-        worst = max(worst, err)
-        if not err <= GRAD_TOL:
-            raise RuntimeError(f"grad of {name} differs from the plain run by {err:.3e} "
-                               f"of its max (tolerance {GRAD_TOL})")
-    if abs(loss - loss_p) > GRAD_TOL * abs(loss_p):
-        raise RuntimeError(f"loss {loss} differs from the plain run's {loss_p}")
+
+    def held(label, loss, grads):
+        """The worst gradient error of a run against the plain run, and its
+        parameter; raises past the tolerance."""
+        worst, worst_name = 0.0, None
+        for name, g in grads.items():
+            want = grads_p[name].float()
+            err = float((g.float() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if err >= worst:
+                worst, worst_name = err, name
+            if not err <= tol:
+                raise RuntimeError(f"{dtype_name} {label}: grad of {name} differs from the "
+                                   f"plain run by {err:.3e} of its max (tolerance {tol})")
+        if abs(loss - loss_p) > tol * abs(loss_p):
+            raise RuntimeError(f"{dtype_name} {label}: loss {loss} differs from the plain "
+                               f"run's {loss_p}")
+        return worst, worst_name
+
+    worst, worst_name = held("kernels", loss, grads)
+    # each kernel alone among plain versions: which one moves the gradients
+    by_kernel = {}
+    for kernel in FLASH_KERNELS:
+        with _PlainAttention(keep=(kernel,)):
+            loss_k, grads_k = run()
+        by_kernel[kernel] = dict(zip(("worst_rel_grad_err", "worst_param"),
+                                     held(f"{kernel} alone", loss_k, grads_k)),
+                                 loss=loss_k)
     del model
     torch.cuda.empty_cache()
-    return dict(model="bert_large width, 2 layers, fp32, dropout 0.1, remat dots",
+    return dict(model=f"bert_large width, 2 layers, {dtype_name}, dropout 0.1, remat dots",
                 batch=8, seq=FS, loss=loss, loss_plain=loss_p, params=len(grads),
-                worst_rel_grad_err=worst, tol=GRAD_TOL)
+                worst_rel_grad_err=worst, worst_param=worst_name, tol=tol,
+                one_kernel_alone=by_kernel)
 
 
 def main():
@@ -897,7 +934,8 @@ def main():
     if "train" in phases:
         trained = _report("train", _phase("train", phase_train))
     if "grad" in phases:
-        grad_oracle = _report("grad_oracle", _phase("grad", phase_grad_oracle))
+        grad_oracle = [_report("grad_oracle", _phase(f"grad {d}", phase_grad_oracle, d))
+                       for d in ("fp32", "bf16")]
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -927,6 +965,9 @@ def main():
             **rep["kernels"][kind], main_case=FLASH_MAIN_CASE,
             library_call=("scaled_dot_product_attention" if kind == "fwd" else
                           "scaled_dot_product_attention backward (dq, dk, dv together)")))
+        if kind == "dq":   # the two backward kernels against SDPA's whole backward
+            entries[-1]["backward_by_case"] = [dict(case=c["case"], **c["backward"])
+                                               for c in flash_cases]
     card = card_info()
     if args.out:
         with open(args.out, "w") as f:

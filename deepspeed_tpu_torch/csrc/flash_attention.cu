@@ -22,9 +22,9 @@
 // What bounds it on the H100: at the training shapes (S = 128, D = 64) each
 // (batch, head) reads 4 S x D tiles and does ~4 S^2 D flops per product, about
 // 32 flops per byte in bf16, far below the tensor cores' ridge (~295): on the
-// tensor cores the forward and dk/dv are bound by bytes. On the fp32 CUDA
+// tensor cores the three bf16 kernels are bound by bytes. On the fp32 CUDA
 // cores (ridge ~20) the same work is bound by operations; that is where the
-// fp32 kernels and dq still run.
+// fp32 kernels run (fp32 holds 1e-5, which TF32 cannot).
 //
 // Design of the bf16 forward (`flash_fwd_mma_kernel`). One block per
 // (batch*head, LUT block): the TPU's sequential grid of key blocks becomes a
@@ -45,9 +45,34 @@
 // neighbouring columns of rows r and r + 8, a Philox call gives four columns:
 // the lanes t, t^1 share a column quad, the even lane draws row r's call and
 // the odd lane row r + 8's, and they hand each other the two words the other
-// needs (`__shfl_xor` by 1): one call per lane per eight columns, the same
-// bits as before. The output goes back through the warp's rows of the Q tile
-// so that it is stored 16 bytes a thread.
+// needs (`__shfl_xor` by 1, `paired_words`): one call per lane per eight
+// columns, the same bits as before. The output goes back through the warp's
+// rows of the Q tile so that it is stored 16 bytes a thread.
+//
+// Design of the bf16 dq (`flash_bwd_dq_mma_kernel`). Bound by bytes like
+// the other two: at the main case (B = 64, H = 16, S = 128, D = 64) q, dO,
+// k and v are read and dq written once, ~85 MB with lse, delta and the
+// bias, 0.025 ms at 3.35 TB/s, against 6.4 GFLOP of products. It is the
+// forward's block turned to the backward: one block per (batch*head, query
+// block), a warp per 16 query rows; Q and dO
+// arrive once, K, V and the key bias of each LUT block through the forward's
+// ring (with more than one LUT block the next block's tiles load under this
+// one's products), and each thread keeps lse and delta of its two rows in
+// registers. The backward knows lse, so p needs no running max and a key
+// block is walked in slabs of 32 keys: S = Q K^T and dP = dO V^T on mma.sync
+// (K and V as B operands through ldmatrix), p = exp(s - lse), the keep mask
+// and ds = p (dp - delta) on the accumulator fragments, and the bf16-rounded
+// ds fragments are the A operand of dQ += dS K (K through ldmatrix .trans, as
+// the forward feeds V). A thread holds dq (D / 2 values) and one slab's S and
+// dP. Rows are queries, as in the forward, so the keep mask comes from the
+// forward's lane pairing (`paired_words`); a slab's edge is a multiple of 8
+// columns and never splits a column quad. Fully masked causal slabs are
+// computed, not skipped: a row whose visited keys are all masked has
+// lse = -1e30 + log n and a p of 1, as in the plain version. dq * scale
+// leaves through the warp's own Q rows, 16 bytes a thread, without atomics.
+// Registers (`nvcc -Xptxas -v`, build/torch_kernels/nvcc.log), no
+// instantiation spilling: D = 64 122 at block 128 (two blocks an SM) and
+// 148-155 at blocks 16-64; D = 128 156-185; D = 32 121-124.
 //
 // Design of the bf16 dk/dv/db (`flash_bwd_dkv_mma_kernel`). Its bound is
 // bytes: at the main case (B = 64, H = 16, S = 128, D = 64, one LUT block)
@@ -74,8 +99,8 @@
 // calls and three xor shuffles swap the words (`exchange_words`): one call
 // per four elements, `_dropout_keep`'s bits.
 //
-// The fp32 kernels and the dq kernel: D/32 neighbouring threads share a
-// query (or, in dk/dv, a key) row, each holding 32 of its D values in
+// The fp32 kernels: D/32 neighbouring threads share a query (or, in dk/dv,
+// a key) row, each holding 32 of its D values in
 // registers as eight float4 chunks interleaved across the row's threads, so a
 // warp reads a staged tile row from shared memory as a broadcast without bank
 // conflicts; a dot product is the threads' partial sums reduced with shuffles.
@@ -136,22 +161,8 @@ __device__ __forceinline__ uint32_t word(const uint4& b, int i) {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // this thread's chunk i of a D-long row: chunks interleave across the TPR
@@ -161,8 +172,8 @@ __device__ __forceinline__ int chunk_off(int sub, int i) {
   return (sub + TPR * i) * 4;
 }
 
-template <int TPR, typename T>
-__device__ __forceinline__ void load_row(float4 (&x)[kChunks], const T* row, int sub) {
+template <int TPR>
+__device__ __forceinline__ void load_row(float4 (&x)[kChunks], const float* row, int sub) {
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) x[i] = load4(row + chunk_off<TPR>(sub, i));
 }
@@ -199,9 +210,9 @@ __device__ __forceinline__ void axpy_row(float4 (&acc)[kChunks], float w, const 
   }
 }
 
-// rows [0, rows) of a D-wide tile of T from device memory into fp32 shared memory
-template <int D, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int rows) {
+// rows [0, rows) of a D-wide fp32 tile from device memory into shared memory
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int rows) {
   for (int e = threadIdx.x; e < rows * D / 4; e += blockDim.x)
     *reinterpret_cast<float4*>(dst + e * 4) = load4(src + e * 4);
 }
@@ -213,7 +224,7 @@ __device__ __forceinline__ float masked_score(float dot, float scale, float bias
   return masked ? kNegBig : __fmul_rn(dot, scale) + bias;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(128 * (D / 32))
 flash_fwd_kernel(const Params P) {
   constexpr int TPR = D / 32;
@@ -226,11 +237,11 @@ flash_fwd_kernel(const Params P) {
   float* bs = vs + blk * D;
 
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const T* k = static_cast<const T*>(P.k) + base;
-  const T* v = static_cast<const T*>(P.v) + base;
+  const float* k = static_cast<const float*>(P.k) + base;
+  const float* v = static_cast<const float*>(P.v) + base;
   const int qpos = qi * blk + row;
   float4 qv[kChunks], acc[kChunks];
-  load_row<TPR>(qv, static_cast<const T*>(P.q) + base + static_cast<size_t>(qpos) * D, sub);
+  load_row<TPR>(qv, static_cast<const float*>(P.q) + base + static_cast<size_t>(qpos) * D, sub);
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = kNegBig, l = 0.f;
@@ -273,14 +284,14 @@ flash_fwd_kernel(const Params P) {
           bits = philox4x32_10(make_uint4(qi, kj, row, j >> 2), make_uint2(P.seed, bh));
         pa = word(bits, j & 3) >= P.threshold ? p * P.keep_scale : 0.f;
       }
-      axpy_row<TPR>(acc, round_to<T>(pa), vs + j * D, sub);
+      axpy_row<TPR>(acc, pa, vs + j * D, sub);
     }
     l = l * corr + psum;
     m = m_new;
   }
 
   const bool alive = l > 0.f;
-  T* o = static_cast<T*>(P.out0) + base + static_cast<size_t>(qpos) * D;
+  float* o = static_cast<float*>(P.out0) + base + static_cast<size_t>(qpos) * D;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const float4 r = alive ? make_float4(acc[i].x / l, acc[i].y / l, acc[i].z / l,
@@ -305,6 +316,25 @@ struct FwdLayout {
   // Q tile | `stages` x (K tile, V tile, bias)
   static constexpr int smem_bytes(int stages) { return kTileBytes + stages * kStageBytes; }
 };
+
+// The keep words of a thread's four accumulator elements of one n-tile
+// whose rows are queries: rows r0 (w[0], w[1]) and r0 + 8 (w[2], w[3]),
+// columns 4 quad4 + 2 (lane & 1) + {0, 1} of the key block. Lanes t,
+// t^1 share the column quad `quad4`: the even lane draws row r0's four
+// words, the odd lane row r0 + 8's, and each hands the other the two words
+// of the other's columns.
+__device__ __forceinline__ void paired_words(uint32_t (&w)[4], const Params& P, int bh, int qi,
+                                             int kj, int r0, int quad4, int lane) {
+  const bool odd = lane & 1;
+  const uint4 bits = philox4x32_10(make_uint4(qi, kj, odd ? r0 + 8 : r0, quad4),
+                                   make_uint2(P.seed, bh));
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? bits.x : bits.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? bits.y : bits.w, 1);
+  w[0] = odd ? got0 : bits.x;
+  w[1] = odd ? got1 : bits.y;
+  w[2] = odd ? bits.z : got0;
+  w[3] = odd ? bits.w : got1;
+}
 
 // a BLOCK x D bf16 tile from device memory into shared-memory rows padded
 // by 16 bytes (FwdLayout::kStride), 16 bytes a thread by cp.async
@@ -461,17 +491,8 @@ flash_fwd_mma_kernel(const Params P) {
       ps0 += p[0] + p[1];
       ps1 += p[2] + p[3];
       if (P.dropout) {
-        // lanes t, t^1 share the column quad: the even lane draws row r0's
-        // four words, the odd lane row r0 + 8's, and each hands the other
-        // the two words of the other's columns
-        const bool odd = lane & 1;
-        const uint4 bits = philox4x32_10(
-            make_uint4(qi, kj, odd ? r0 + 8 : r0, 2 * t + ((lane & 3) >> 1)),
-            make_uint2(P.seed, bh));
-        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? bits.x : bits.z, 1);
-        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? bits.y : bits.w, 1);
-        const uint32_t w[4] = {odd ? got0 : bits.x, odd ? got1 : bits.y,   // row r0
-                               odd ? bits.z : got0, odd ? bits.w : got1};  // row r0 + 8
+        uint32_t w[4];
+        paired_words(w, P, bh, qi, kj, r0, 2 * t + ((lane & 3) >> 1), lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[e] = w[e] >= P.threshold ? p[e] * P.keep_scale : 0.f;
       }
@@ -535,7 +556,7 @@ flash_fwd_mma_kernel(const Params P) {
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(128 * (D / 32))
 flash_bwd_dq_kernel(const Params P) {
   constexpr int TPR = D / 32;
@@ -548,12 +569,12 @@ flash_bwd_dq_kernel(const Params P) {
   float* bs = vs + blk * D;
 
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const T* k = static_cast<const T*>(P.k) + base;
-  const T* v = static_cast<const T*>(P.v) + base;
+  const float* k = static_cast<const float*>(P.k) + base;
+  const float* v = static_cast<const float*>(P.v) + base;
   const int qpos = qi * blk + row;
   float4 qv[kChunks], dov[kChunks], dq[kChunks];
-  load_row<TPR>(qv, static_cast<const T*>(P.q) + base + static_cast<size_t>(qpos) * D, sub);
-  load_row<TPR>(dov, static_cast<const T*>(P.dout) + base + static_cast<size_t>(qpos) * D,
+  load_row<TPR>(qv, static_cast<const float*>(P.q) + base + static_cast<size_t>(qpos) * D, sub);
+  load_row<TPR>(dov, static_cast<const float*>(P.dout) + base + static_cast<size_t>(qpos) * D,
                 sub);
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) dq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -582,11 +603,11 @@ flash_bwd_dq_kernel(const Params P) {
         dp = word(bits, j & 3) >= P.threshold ? dp * P.keep_scale : 0.f;
       }
       const float ds = p * (dp - delta);
-      axpy_row<TPR>(dq, round_to<T>(ds), ks + j * D, sub);
+      axpy_row<TPR>(dq, ds, ks + j * D, sub);
     }
   }
 
-  T* o = static_cast<T*>(P.out0) + base + static_cast<size_t>(qpos) * D;
+  float* o = static_cast<float*>(P.out0) + base + static_cast<size_t>(qpos) * D;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i)
     store4(o + chunk_off<TPR>(sub, i),
@@ -594,7 +615,7 @@ flash_bwd_dq_kernel(const Params P) {
                        dq[i].w * P.scale));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(128 * (D / 32))
 flash_bwd_dkv_kernel(const Params P) {
   constexpr int TPR = D / 32;
@@ -608,12 +629,12 @@ flash_bwd_dkv_kernel(const Params P) {
   float* deltas = lses + blk;
 
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const T* q = static_cast<const T*>(P.q) + base;
-  const T* dout = static_cast<const T*>(P.dout) + base;
+  const float* q = static_cast<const float*>(P.q) + base;
+  const float* dout = static_cast<const float*>(P.dout) + base;
   const int kpos = kj * blk + col;
   float4 kv[kChunks], vv[kChunks], dk[kChunks], dv[kChunks];
-  load_row<TPR>(kv, static_cast<const T*>(P.k) + base + static_cast<size_t>(kpos) * D, sub);
-  load_row<TPR>(vv, static_cast<const T*>(P.v) + base + static_cast<size_t>(kpos) * D, sub);
+  load_row<TPR>(kv, static_cast<const float*>(P.k) + base + static_cast<size_t>(kpos) * D, sub);
+  load_row<TPR>(vv, static_cast<const float*>(P.v) + base + static_cast<size_t>(kpos) * D, sub);
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     dk[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -648,15 +669,15 @@ flash_bwd_dkv_kernel(const Params P) {
         p_drop = keep ? p * P.keep_scale : 0.f;
         dp = keep ? dp * P.keep_scale : 0.f;
       }
-      axpy_row<TPR>(dv, round_to<T>(p_drop), dos + i * D, sub);
+      axpy_row<TPR>(dv, p_drop, dos + i * D, sub);
       const float ds = p * (dp - deltas[i]);
-      axpy_row<TPR>(dk, round_to<T>(ds), qs + i * D, sub);
+      axpy_row<TPR>(dk, ds, qs + i * D, sub);
       db += ds;
     }
   }
 
-  T* okv = static_cast<T*>(P.out0) + base + static_cast<size_t>(kpos) * D;
-  T* ovv = static_cast<T*>(P.out1) + base + static_cast<size_t>(kpos) * D;
+  float* okv = static_cast<float*>(P.out0) + base + static_cast<size_t>(kpos) * D;
+  float* ovv = static_cast<float*>(P.out1) + base + static_cast<size_t>(kpos) * D;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     store4(okv + chunk_off<TPR>(sub, i),
@@ -934,15 +955,219 @@ flash_bwd_dkv_mma_kernel(const Params P) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq on the tensor cores
+// ---------------------------------------------------------------------------
+
+// One thread block per (batch*head, query block), a warp per 16 query rows;
+// S = Q K^T and dP = dO V^T leave a query row's scores in the accumulator
+// registers of its warp, whose rounded ds fragments are the A operand of
+// dQ += dS K. Each LUT key block is walked in slabs of 32 keys (p needs no
+// running max), so a thread holds dq (D / 2 values) and two 16 x 32 tiles.
+template <int BLOCK, int D>
+__global__ void __launch_bounds__(BLOCK * 2, D <= 64 ? 2 : 1)
+flash_bwd_dq_mma_kernel(const Params P) {
+  using Lay = FwdLayout<BLOCK, D>;
+  constexpr int THREADS = BLOCK * 2;
+  constexpr int STRIDE = Lay::kStride;
+  constexpr int CPR = D / 8;                   // 16-byte chunks per row
+  constexpr int KS = BLOCK < 32 ? BLOCK : 32;  // keys a slab
+  constexpr int NT = KS / 8;                   // score n-tiles of a slab
+  constexpr int DT = D / 8;                    // dq n-tiles
+  const int bh = blockIdx.x, qi = blockIdx.y, nqb = gridDim.y;
+  const int h = bh % P.H, b = bh / P.H, S = P.S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, mat = lane >> 3;
+  extern __shared__ float4 smem4[];
+  // Q tile | dO tile | the forward's ring of (K tile, V tile, bias) stages
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* sO = sQ + Lay::kTileBytes;
+  unsigned char* stages = sO + Lay::kTileBytes;
+
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const size_t rows = base + static_cast<size_t>(qi) * BLOCK * D;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(P.q) + rows;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(P.dout) + rows;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(P.k) + base;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(P.v) + base;
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(P.out0) + rows;
+  const int* lut = P.lut + (static_cast<size_t>(h) * nqb + qi) * P.maxn;
+  const int count = P.counts[h * nqb + qi];
+
+  if (count == 0) {  // the block's rows see no key
+    for (int e = tid; e < BLOCK * CPR; e += THREADS)
+      reinterpret_cast<uint4*>(dq)[e] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+
+  auto load_tile = [&](unsigned char* dst, const __nv_bfloat16* src) {
+    copy_tile<BLOCK, D, THREADS>(dst, src);
+  };
+  auto load_bias = [&](unsigned char* stage, int k0) {
+    for (int e = tid; e < BLOCK / 4; e += THREADS)
+      cp_async16(smem_u32(stage + 2 * Lay::kTileBytes + e * 16), P.bias + b * S + k0 + e * 4,
+                 16);
+  };
+
+  {  // group 0: Q, the first K and its bias; group 1: dO and the first V
+    const int k0 = lut[0] * BLOCK;
+    load_tile(sQ, q);
+    load_tile(stages, k + static_cast<size_t>(k0) * D);
+    load_bias(stages, k0);
+    cp_async_commit();
+    load_tile(sO, dout);
+    load_tile(stages + Lay::kTileBytes, v + static_cast<size_t>(k0) * D);
+    cp_async_commit();
+  }
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows of the block: r0, r0 + 8
+  const int qpos0 = qi * BLOCK + r0, qpos1 = qpos0 + 8;
+  const float* lse = P.lse + static_cast<size_t>(bh) * S;
+  const float* delta = P.delta + static_cast<size_t>(bh) * S;
+  const float lse0 = lse[qpos0], lse1 = lse[qpos1];
+  const float dl0 = delta[qpos0], dl1 = delta[qpos1];
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int n = 0; n < count; ++n) {
+    const int kj = lut[n], k0 = kj * BLOCK;
+    const bool has_next = n + 1 < count;
+    unsigned char* stage = stages + (n & 1) * Lay::kStageBytes;
+    if (has_next) {  // the next LUT block loads under this one's products
+      unsigned char* next = stages + ((n + 1) & 1) * Lay::kStageBytes;
+      const int k1 = lut[n + 1] * BLOCK;
+      load_tile(next, k + static_cast<size_t>(k1) * D);
+      load_tile(next + Lay::kTileBytes, v + static_cast<size_t>(k1) * D);
+      load_bias(next, k1);
+      cp_async_commit();
+    }
+    // K (and, at first, Q) must have landed; at n == 0 dO and V are one
+    // group younger
+    if (n == 0) {
+      if (has_next) cp_async_wait<2>(); else cp_async_wait<1>();
+    } else {
+      if (has_next) cp_async_wait<1>(); else cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* tK = stage;
+    const unsigned char* tV = stage + Lay::kTileBytes;
+    const float* sB = reinterpret_cast<const float*>(stage + 2 * Lay::kTileBytes);
+    // only a key block that reaches past the query block's first row can
+    // hold a causally masked pair; the others skip the compare
+    const bool diagonal = P.causal && k0 + BLOCK - 1 > qi * BLOCK;
+
+#pragma unroll 1
+    for (int sl = 0; sl < BLOCK / KS; ++sl) {
+      const int cb = sl * KS;
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      // S = Q K^T over the slab's keys
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_u32(sQ + ((warp * 16 + (lane & 7) + (mat & 1) * 8) * STRIDE +
+                                       kk * 16 + (mat >> 1) * 8) * 2));
+#pragma unroll
+        for (int tp = 0; tp < NT / 2; ++tp) {
+          const int key = cb + tp * 16 + (mat >> 1) * 8 + (lane & 7);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_u32(tK + (key * STRIDE + kk * 16 + (mat & 1) * 8) * 2));
+          mma_bf16(s[2 * tp], af, bf[0], bf[1]);
+          mma_bf16(s[2 * tp + 1], af, bf[2], bf[3]);
+        }
+      }
+      if (n == 0 && sl == 0) {  // dO and the first V
+        if (has_next) cp_async_wait<1>(); else cp_async_wait<0>();
+        __syncthreads();
+      }
+      // dP = dO V^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_u32(sO + ((warp * 16 + (lane & 7) + (mat & 1) * 8) * STRIDE +
+                                       kk * 16 + (mat >> 1) * 8) * 2));
+#pragma unroll
+        for (int tp = 0; tp < NT / 2; ++tp) {
+          const int key = cb + tp * 16 + (mat >> 1) * 8 + (lane & 7);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_u32(tV + (key * STRIDE + kk * 16 + (mat & 1) * 8) * 2));
+          mma_bf16(dp[2 * tp], af, bf[0], bf[1]);
+          mma_bf16(dp[2 * tp + 1], af, bf[2], bf[3]);
+        }
+      }
+
+      // p, the keep mask and ds rounded to bf16 as the A operand; a thread
+      // holds keys c, c + 1 of rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3)
+      uint32_t da[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int c = cb + t * 8 + (lane & 3) * 2;
+        const float2 bias = *reinterpret_cast<const float2*>(sB + c);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          const float sc = masked_score(s[t][e], P.scale, (e & 1) ? bias.y : bias.x,
+                                        diagonal && (lo ? qpos0 : qpos1) < k0 + c + (e & 1));
+          ds[e] = __expf(sc - (lo ? lse0 : lse1));
+        }
+        if (P.dropout) {
+          uint32_t w[4];
+          paired_words(w, P, bh, qi, kj, r0, c >> 2, lane);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[t][e] = w[e] >= P.threshold ? dp[t][e] * P.keep_scale : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[e] *= dp[t][e] - (e < 2 ? dl0 : dl1);
+        da[t][0] = pack_bf16(ds[0], ds[1]);
+        da[t][1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS K over the slab's keys
+#pragma unroll
+      for (int ks = 0; ks < KS / 16; ++ks) {
+        const uint32_t a[4] = {da[2 * ks][0], da[2 * ks][1], da[2 * ks + 1][0],
+                               da[2 * ks + 1][1]};
+        const int key = cb + ks * 16 + (mat & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, smem_u32(tK + (key * STRIDE + dp2 * 16 + (mat >> 1) * 8) * 2));
+          mma_bf16(acc[2 * dp2], a, bf[0], bf[1]);
+          mma_bf16(acc[2 * dp2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage may be refilled
+  }
+
+  // dq * scale through the warp's own rows of the Q tile, then 16 bytes a thread
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + (lane & 3) * 2;
+    *reinterpret_cast<uint32_t*>(sQ + (r0 * STRIDE + col) * 2) =
+        pack_bf16(acc[d][0] * P.scale, acc[d][1] * P.scale);
+    *reinterpret_cast<uint32_t*>(sQ + ((r0 + 8) * STRIDE + col) * 2) =
+        pack_bf16(acc[d][2] * P.scale, acc[d][3] * P.scale);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = warp * 16 + e / CPR, ch = e % CPR;
+    *reinterpret_cast<uint4*>(dq + r * D + ch * 8) =
+        *reinterpret_cast<const uint4*>(sQ + (r * STRIDE + ch * 8) * 2);
+  }
+}
+
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int D>
-cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
-  void (*kernel)(const Params) = flash_bwd_dq_kernel<T, D>;
-  if constexpr (sizeof(T) == 4) {  // bf16 forward and dk/dv run on the tensor cores
-    if (kind == kFwd) kernel = flash_fwd_kernel<T, D>;
-    if (kind == kDkv) kernel = flash_bwd_dkv_kernel<T, D>;
-  }
+template <int D>
+cudaError_t launch_fp32(Kind kind, const Params& P, int BH, cudaStream_t stream) {
+  void (*kernel)(const Params) = kind == kFwd  ? flash_fwd_kernel<D>
+                                 : kind == kDq ? flash_bwd_dq_kernel<D>
+                                               : flash_bwd_dkv_kernel<D>;
   const size_t smem = sizeof(float) * (2 * P.block * D + 2 * P.block);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -953,12 +1178,16 @@ cudaError_t launch(Kind kind, const Params& P, int BH, cudaStream_t stream) {
 
 template <int BLOCK, int D>
 cudaError_t launch_mma(Kind kind, const Params& P, int BH, cudaStream_t stream) {
-  void (*kernel)(const Params) = kind == kFwd ? flash_fwd_mma_kernel<BLOCK, D>
-                                              : flash_bwd_dkv_mma_kernel<BLOCK, D>;
-  // the forward's second stage is only ever filled when a row has more than
-  // one LUT block
-  const int smem = kind == kFwd ? FwdLayout<BLOCK, D>::smem_bytes(P.maxn > 1 ? 2 : 1)
-                                : DkvLayout<BLOCK, D>::kSmemBytes;
+  void (*kernel)(const Params) = kind == kFwd  ? flash_fwd_mma_kernel<BLOCK, D>
+                                 : kind == kDq ? flash_bwd_dq_mma_kernel<BLOCK, D>
+                                               : flash_bwd_dkv_mma_kernel<BLOCK, D>;
+  // the forward's and dq's second stage is only ever filled when a row has
+  // more than one LUT block; dq holds a dO tile besides the forward's layout
+  using Fwd = FwdLayout<BLOCK, D>;
+  const int stages = P.maxn > 1 ? 2 : 1;
+  const int smem = kind == kFwd  ? Fwd::smem_bytes(stages)
+                   : kind == kDq ? Fwd::kTileBytes + Fwd::smem_bytes(stages)
+                                 : DkvLayout<BLOCK, D>::kSmemBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -975,21 +1204,19 @@ cudaError_t dispatch_mma(Kind kind, const Params& P, int BH, cudaStream_t stream
   return cudaErrorInvalidValue;
 }
 
-// the bf16 forward and dk/dv run on the tensor cores; dq and every fp32
-// kernel on the fp32 CUDA cores (fp32 holds 1e-5, which TF32 cannot)
-template <typename T>
-cudaError_t dispatch_d(Kind kind, int D, const Params& P, int BH, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    if (kind != kDq) {
-      if (D == 32) return dispatch_mma<32>(kind, P, BH, stream);
-      if (D == 64) return dispatch_mma<64>(kind, P, BH, stream);
-      if (D == 128) return dispatch_mma<128>(kind, P, BH, stream);
-      return cudaErrorInvalidValue;
-    }
+// bf16 runs on the tensor cores, fp32 on the CUDA cores (fp32 holds 1e-5,
+// which TF32 cannot); any other head dim or dtype is refused
+cudaError_t dispatch(Kind kind, int dtype, int D, const Params& P, int BH,
+                     cudaStream_t stream) {
+  if (dtype == kBF16) {
+    if (D == 32) return dispatch_mma<32>(kind, P, BH, stream);
+    if (D == 64) return dispatch_mma<64>(kind, P, BH, stream);
+    if (D == 128) return dispatch_mma<128>(kind, P, BH, stream);
+  } else if (dtype == kF32) {
+    if (D == 32) return launch_fp32<32>(kind, P, BH, stream);
+    if (D == 64) return launch_fp32<64>(kind, P, BH, stream);
+    if (D == 128) return launch_fp32<128>(kind, P, BH, stream);
   }
-  if (D == 32) return launch<T, 32>(kind, P, BH, stream);
-  if (D == 64) return launch<T, 64>(kind, P, BH, stream);
-  if (D == 128) return launch<T, 128>(kind, P, BH, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1009,13 +1236,8 @@ int run(Kind kind, Params& P, int B, int H, int S, int D, int block, int maxn, i
   P.threshold = threshold;
   P.keep_scale = keep_scale;
   P.dropout = dropout;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kF32)
-    err = dispatch_d<float>(kind, D, P, B * H, st);
-  else if (dtype == kBF16)
-    err = dispatch_d<__nv_bfloat16>(kind, D, P, B * H, st);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch(kind, dtype, D, P, B * H, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -322,3 +322,53 @@ def test_dkv_lane_map_and_philox_exchange_reproduce_dropout_keep(warp):
     assert torch.equal(written, torch.ones_like(written))
     assert calls * 4 == got.numel()
     assert 0.85 < float(got.float().mean()) < 0.95
+
+
+def _dq_tile_keep(seed, bh, qi, kj, warp, block, rate, slab):
+    """The bf16 dq kernel's keep mask of warp ``warp``'s 16 query rows
+    against a key block, rebuilt from its lane map over the block's slabs
+    of ``slab`` keys: in the slab's S accumulator lane t holds rows
+    r0 = 16 warp + t / 4 and r0 + 8 and keys c = cb + 8 nt + 2 (t % 4) +
+    {0, 1}, cb the slab's first key. The call's column quad is c / 4, so
+    lanes t and t ^ 1 share it: the even lane draws row r0's call, the odd
+    lane row r0 + 8's, and each hands the other the two words of the
+    other's keys (``__shfl_xor`` by 1). Returns (bool [16, block], Philox
+    calls made, times each element was written)."""
+    thr = T._dropout_threshold(rate)
+    lane = torch.arange(32)
+    odd = (lane & 1).bool()
+    r0 = 16 * warp + (lane >> 2)
+    keep = torch.zeros(16, block, dtype=torch.bool)
+    written = torch.zeros(16, block, dtype=torch.long)
+    calls = 0
+    for cb in range(0, block, slab):
+        for nt in range(slab // 8):
+            c = cb + nt * 8 + (lane & 3) * 2
+            x, y, z, w = T.philox4x32((qi, kj, torch.where(odd, r0 + 8, r0), c >> 2),
+                                      (seed, bh))
+            calls += 32
+            send0, send1 = torch.where(odd, x, z), torch.where(odd, y, w)
+            got0, got1 = send0[lane ^ 1], send1[lane ^ 1]
+            words = (torch.where(odd, got0, x), torch.where(odd, got1, y),    # row r0
+                     torch.where(odd, z, got0), torch.where(odd, w, got1))    # row r0 + 8
+            for e in range(4):
+                rows = (lane >> 2) + 8 * (e >> 1)
+                keep[rows, c + (e & 1)] = words[e] >= thr
+                written[rows, c + (e & 1)] += 1
+    return keep, calls, written
+
+
+@pytest.mark.parametrize("slab", [16, 32])
+@pytest.mark.parametrize("warp", [0, 3, 7])
+def test_dq_lane_map_and_philox_pairing_reproduce_dropout_keep(warp, slab):
+    """The dq kernel's 16 query rows of a warp against a 128-key block,
+    walked in slabs, draw exactly ``_dropout_keep``'s bits through the
+    forward's lane map and pairing, with one Philox call per lane per
+    eight keys and every element written once."""
+    seed, bh, qi, kj, block, rate = 4321, 37, 2, 5, 128, 0.1
+    want = T._dropout_keep(seed, bh, qi, kj, block, block, rate, "cpu") > 0
+    got, calls, written = _dq_tile_keep(seed, bh, qi, kj, warp, block, rate, slab)
+    assert torch.equal(got, want[16 * warp:16 * warp + 16])
+    assert torch.equal(written, torch.ones_like(written))
+    assert calls == 32 * block // 8
+    assert 0.85 < float(got.float().mean()) < 0.95
