@@ -29,16 +29,23 @@ prints no result line):
    against their plain versions at the BERT-large training shapes (bf16
    and fp32, padded keys, causal, a block-16 sparse layout with an empty
    row, dropout 0.1 on the same Philox bits; head dims 128 and 32 and
-   longer sequences in blocks of 64 and 32 once each), and time them as
-   phase 2 does, with ``scaled_dot_product_attention`` and its backward
-   as the yardsticks (dq + dk/dv beside the whole backward);
+   longer sequences in blocks of 64 and 32 once each; fp16 padded with
+   dropout, causal, head dim 128 and S = 512 in blocks of 64), and time
+   them as phase 2 does, with ``scaled_dot_product_attention`` and its
+   backward as the yardsticks (dq + dk/dv beside the whole backward);
+   then an fp16 backward with dO times a loss scale near fp16's range,
+   where kernels and plain versions must overflow in the same grads;
 6. train BERT-large at full width through ``initialize()`` (Adam, bf16,
    ZeRO 0, activation checkpointing "dots", micro-batch 64, seq 128,
    dropout 0.1) on one repeated random batch, show that all three flash
    kernels launched, that every loss is finite and that the loss falls,
    and profile one step (bf16 dq must run on the tensor-core kernel);
-7. at BERT-large width with 2 layers and dropout 0.1, in fp32 and then in
-   bf16, hold the loss and every parameter's gradient on the kernels
+   then train it in fp16 with LAMB, gradient clipping, WarmupDecayLR and
+   dynamic loss scaling over ``training_data=`` through ``train_batch()``:
+   the fp16 kernels must launch 48/24/24 times a step, the loss fall and
+   every step run at the schedule's LR (held on a skipped step);
+7. at BERT-large width with 2 layers and dropout 0.1, in fp32, bf16 and
+   fp16, hold the loss and every parameter's gradient on the kernels
    against the same model with the plain attention versions swapped in.
 
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad) while
@@ -50,6 +57,7 @@ power limit printed before it; the last line is the run's JSON result.
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,7 +69,8 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_OPS = {torch.float32: 67e12,          # fp32 outside the tensor cores
-            torch.bfloat16: 989e12}        # bf16 tensor cores, dense
+            torch.bfloat16: 989e12,        # bf16 tensor cores, dense
+            torch.float16: 989e12}         # fp16 tensor cores, dense
 
 B, NH, HD, PT, MP = 8, 25, 64, 128, 8      # GPT-2 XL serving shapes
 W = 2 * PT                                  # band window (SPARSE_BAND + 1 pages)
@@ -442,11 +451,12 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, calls = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name[:90]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            calls[name] = calls.get(name, 0) + 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]
@@ -455,6 +465,7 @@ def _profiled(fn):
                 top_ms={k: v / 1e3 for k, v in top},
                 # the port's own kernels, whatever their rank
                 own_ms={k: v / 1e3 for k, v in by_name.items() if "dstorch" in k},
+                own_launches={k: v for k, v in calls.items() if "dstorch" in k},
                 # host self time by op under the profiler (which inflates it)
                 top_host_self_ms={a.key[:90]: a.self_cpu_time_total / 1e3 for a in host})
 
@@ -559,10 +570,14 @@ FLASH_SEED = 4321
 # magnitude (at least 1). fp32: the same fp32 math summed in another order.
 # bf16: both round p and ds to bf16 at the same points, but a different
 # summation order can flip a rounding, and outputs are rounded to bf16.
-FLASH_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+# fp16: the same, with three more bits of mantissa (8x finer steps), so a
+# quarter of bf16's tolerance.
+FLASH_TOL = {"fp32": 1e-5, "bf16": 2e-2, "fp16": 5e-3}
+FLASH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 FLASH_MAIN_CASE = "bf16 padded dropout0.1"
+FLASH_FP16_MAIN_CASE = "fp16 padded dropout0.1"
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
@@ -611,7 +626,7 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     SDPA's whole backward (PyTorch has no call that computes dq alone)."""
     from deepspeed_tpu_torch.ops.transformer import attention as fa
 
-    dt = torch.float32 if dtype_name == "fp32" else torch.bfloat16
+    dt = FLASH_DTYPES[dtype_name]
     block = 16 if sparse else block or fa.DEFAULT_BLOCK
     gen = torch.Generator(device="cuda").manual_seed(3000 + sum(map(ord, label)))
     q, k, v, do = (torch.randn(FB, FH, FS, FD, generator=gen, device="cuda").to(dt)
@@ -645,6 +660,8 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
     dkv_p = fa._flash_bwd_dkv_torch(*bwd_in, qlut, qcounts, *pkw)
     for name, got, want in zip(("dk", "dv", "db"), dkv, dkv_p):
         errs[name] = _check_rel(f"{label} {name}", got, want, tol)
+    plain_absmax = {name: float(t.float().abs().max()) for name, t in
+                    zip(("out", "lse", "dq", "dk", "dv", "db"), (out_p, lse_p, dq_p, *dkv_p))}
     if sparse and float(out[:, 0, block:2 * block].abs().max()) != 0.0:
         raise RuntimeError(f"{label}: the empty row's output is not 0")
 
@@ -680,7 +697,78 @@ def flash_case(timer, label, dtype_name, *, causal=False, rate=0.0, padded=True,
                          bound_ms=bound_ms, bound_by=bound_by)
     backward = dict(dq_plus_dkv_ms=res["dq"]["ms"] + res["dkv"]["ms"], library_ms=lib_bwd)
     return dict(case=label, block=block, head_dim=FD, batch=FB, seq=FS, causal=causal,
-                dropout=rate, tol=tol, max_abs_err=errs, kernels=res, backward=backward)
+                dropout=rate, tol=tol, max_abs_err=errs, plain_absmax=plain_absmax,
+                kernels=res, backward=backward)
+
+
+FP16_MAX = 65504.0
+OVERFLOW_LOSS_SCALE = 2.0 ** 14   # the largest power of two that keeps |dO| <= 2 finite
+
+
+def flash_overflow_case():
+    """An fp16 backward with dO multiplied by a loss scale near fp16's range
+    (|dO| <= 2 before the scale, q tripled so the softmax is sharp and ds
+    is large): the kernels and their plain versions round ds and the grads
+    to fp16 at the same points, so both must give inf in the same grads
+    (the loss scaler's overflow verdict), and their finite elements must
+    agree. The same inputs at scale 1 must stay finite on both sides."""
+    from deepspeed_tpu_torch.ops.transformer import attention as fa
+
+    dt, block, rate = torch.float16, fa.DEFAULT_BLOCK, 0.1
+    gen = torch.Generator(device="cuda").manual_seed(3999)
+    q, k, v, do = (torch.randn(FB, FH, FS, FD, generator=gen, device="cuda")
+                   for _ in range(4))
+    q, k, v = (q * 3).to(dt), k.to(dt), v.to(dt)
+    do = do.clamp(-2.0, 2.0)
+    pad = torch.rand(FB, FS, generator=gen, device="cuda") < 0.2
+    pad[:, 0] = False
+    bias = torch.where(pad, -10000.0, 0.0)
+    lut, counts, qlut, qcounts = fa._device_luts(None, FH, FS, block, q.device)
+    kw = dict(block=block, causal=False, rate=rate, seed=FLASH_SEED)
+    pkw = (block, False, rate, FLASH_SEED)
+    out_p, lse_p = fa._flash_fwd_torch(q, k, v, bias, lut, counts, *pkw)
+    tol = FLASH_TOL["fp16"]
+    res = dict(case="fp16 padded dropout0.1 loss-scaled dO", loss_scale=OVERFLOW_LOSS_SCALE,
+               tol=tol, verdicts={})
+    for scale in (1.0, OVERFLOW_LOSS_SCALE):
+        dos = (do * scale).to(dt)
+        if not torch.isfinite(dos.float()).all():
+            raise RuntimeError("the scaled dO itself is not finite in fp16")
+        delta = (dos.float() * out_p.float()).sum(-1).reshape(FB * FH, FS)
+        bwd_in = (q, k, v, bias, dos, lse_p, delta)
+        got = (fa.flash_bwd_dq(*bwd_in, lut, counts, **kw),
+               *fa.flash_bwd_dkv(*bwd_in, qlut, qcounts, **kw)[:2])
+        want = (fa._flash_bwd_dq_torch(*bwd_in, lut, counts, *pkw),
+                *fa._flash_bwd_dkv_torch(*bwd_in, qlut, qcounts, *pkw)[:2])
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            gf, wf = g.float(), w.float()
+            g_ok, w_ok = torch.isfinite(gf), torch.isfinite(wf)
+            verdict = (not bool(g_ok.all()), not bool(w_ok.all()))
+            if verdict[0] != verdict[1]:
+                raise RuntimeError(f"fp16 overflow at loss scale {scale}: {name} "
+                                   f"non-finite {verdict[0]} in the kernel, {verdict[1]} "
+                                   "in the plain version")
+            both = g_ok & w_ok
+            differ = int((g_ok != w_ok).sum())
+            if differ > 1e-5 * g.numel():
+                raise RuntimeError(f"fp16 overflow at loss scale {scale}: {name} is finite "
+                                   f"at {differ} elements on one side only")
+            err = float((gf - wf).abs()[both].max()) if bool(both.any()) else 0.0
+            big = max(1.0, float(wf.abs()[both].max())) if bool(both.any()) else 1.0
+            if err > tol * big:
+                raise RuntimeError(f"fp16 overflow at loss scale {scale}: finite {name} "
+                                   f"differs by {err:.3e} (allowed {tol} x {big:.3g})")
+            res["verdicts"][f"{name} x{scale:g}"] = dict(
+                overflow=verdict[0], nonfinite=int((~g_ok).sum()),
+                nonfinite_plain=int((~w_ok).sum()), finiteness_differs=differ,
+                max_abs_err=err, finite_absmax=big)
+    if any(v["overflow"] for k_, v in res["verdicts"].items() if k_.endswith("x1")):
+        raise RuntimeError(f"fp16 backward overflowed at loss scale 1: {res['verdicts']}")
+    if not any(v["overflow"] for v in res["verdicts"].values()):
+        raise RuntimeError("the loss-scaled fp16 backward overflowed nowhere: the case "
+                           "shows nothing")
+    return res
 
 
 def _bert_batch(cfg, batch, seq, seed=0):
@@ -743,6 +831,119 @@ def phase_train():
                # understates the unprofiled step's
                busy_share_of_step=profile["device_busy_ms"] / (1e3 * wall / TRAIN_STEPS))
     del engine, model, timed
+    torch.cuda.empty_cache()
+    return res
+
+
+# the fp16 run of phase 6: BERT-pretraining's LAMB recipe (the optimizer
+# keys of DeepSpeedExamples' bing_bert LAMB config, seq 128) with a
+# WarmupDecayLR schedule and dynamic loss scaling from 2**16
+FP16_LAMB = {"type": "Lamb", "params": {"lr": 11e-3, "weight_decay": 0.01,
+                                        "bias_correction": False, "max_coeff": 0.3,
+                                        "min_coeff": 0.01}}
+FP16_SCHEDULE = {"type": "WarmupDecayLR",
+                 "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 11e-3,
+                            "warmup_num_steps": 10, "total_num_steps": 1000}}
+FP16_KERNEL_NAMES = {"flash_attention_fwd": "flash_fwd_mma_kernel<__half",
+                     "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel<__half",
+                     "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel<__half"}
+FLASH_PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
+                  "flash_attention_bwd_dkv": 24}   # 24 layers, recomputed forward
+
+
+def _warmup_decay_lr(iteration, p):
+    """WarmupDecayLR's LR at ``iteration``, written out (the schedule the
+    engine must follow)."""
+    warm = p["warmup_num_steps"]
+    if iteration < warm:
+        gamma = min(1.0, math.log(iteration + 1) / math.log(max(warm, 2)))
+    else:
+        gamma = max(0.0, (p["total_num_steps"] - iteration) / max(1.0, p["total_num_steps"] - warm))
+    return p["warmup_min_lr"] + (p["warmup_max_lr"] - p["warmup_min_lr"]) * gamma
+
+
+def phase_train_fp16():
+    """BERT-large at full width in fp16 through ``initialize(training_data=)``
+    and ``train_batch()``: LAMB on the fp32 masters, gradient clipping 1.0,
+    WarmupDecayLR, dynamic loss scaling. Checks that the fp16 flash
+    instantiations launch 48/24/24 times a step, that every loss is finite
+    and the loss falls, and that each step runs at the schedule's LR, held
+    on a skipped step."""
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.BertConfig.bert_large(checkpoint_policy="dots")
+    model = dt.init_bert(cfg, seed=0, device="cuda")
+    ds_config = {"train_batch_size": FB, "train_micro_batch_size_per_gpu": FB,
+                 "gradient_accumulation_steps": 1, "optimizer": FP16_LAMB,
+                 "scheduler": FP16_SCHEDULE, "gradient_clipping": 1.0,
+                 "fp16": {"enabled": True, "loss_scale": 0, "initial_scale_power": 16},
+                 "zero_optimization": {"stage": 0},
+                 "activation_checkpointing": {"enabled": True}, "steps_per_print": 1000}
+    # 256 samples (one tuple of tensors each) made as phase 6's batch is
+    cols = [t.cpu() for t in _bert_batch(cfg, 4 * FB, FS, seed=0)]
+    data = [tuple(c[i] for c in cols) for i in range(4 * FB)]
+    engine, _, loader, _ = dt.initialize(model=model, config=ds_config, training_data=data)
+    if engine.module.bert.embeddings.word_embeddings.weight.dtype != torch.float16:
+        raise RuntimeError("the fp16 engine's module is not in fp16")
+    sched = FP16_SCHEDULE["params"]
+    clean, steps, losses = 0, [], []
+
+    def step():
+        nonlocal clean
+        lr = engine.get_lr()[0]
+        want = _warmup_decay_lr(clean, sched)
+        if abs(lr - want) > 1e-12 * max(1.0, want):
+            raise RuntimeError(f"step {len(steps)}: LR {lr}, the schedule says {want}")
+        skipped, scale = engine.skipped_steps, engine.loss_scale()
+        loss = engine.train_batch()
+        overflow = engine.skipped_steps > skipped
+        if overflow and engine.get_lr()[0] != lr:
+            raise RuntimeError(f"step {len(steps)}: a skipped step moved the LR")
+        clean += not overflow
+        steps.append(dict(loss=loss, lr=lr, loss_scale=scale, overflow=overflow))
+        losses.append(loss)
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    dt.kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dt.kernels.launch_counts()
+    flash = {k: counts[k] for k in FLASH_KERNELS}
+    per_step = {k: v / TRAIN_STEPS for k, v in flash.items()}
+    if per_step != FLASH_PER_STEP:
+        raise RuntimeError(f"fp16 flash launches a step {per_step}, not {FLASH_PER_STEP}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite fp16 training loss: {steps}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the fp16 loss did not fall: {steps}")
+    if engine.skipped_steps == len(steps):
+        raise RuntimeError(f"every fp16 step overflowed: {steps}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _profiled(lambda: engine.train_batch())
+    for kernel, name in FP16_KERNEL_NAMES.items():
+        got = sum(n for k, n in profile["own_launches"].items() if name in k)
+        if got != FLASH_PER_STEP[kernel]:
+            raise RuntimeError(f"{name}> launched {got} times in the profiled fp16 step, "
+                               f"not {FLASH_PER_STEP[kernel]}: {profile['own_launches']}")
+    res = dict(model="bert_large (seed 0), fp16 + fp32 masters, LAMB " +
+                     json.dumps(FP16_LAMB["params"]) + ", WarmupDecayLR " + json.dumps(sched) +
+                     ", gradient clipping 1.0, dynamic loss scale from 2^16, ZeRO 0, "
+                     "activation checkpointing 'dots', dropout 0.1/0.1, training_data= "
+                     f"{len(data)} synthetic samples (seed 0) through train_batch()",
+               micro_batch=FB, seq=FS, warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
+               step_ms=1e3 * wall / TRAIN_STEPS, samples_per_s=FB * TRAIN_STEPS / wall,
+               steps=steps, skipped_steps=engine.skipped_steps,
+               final_loss_scale=engine.loss_scale(), peak_mem_gb=peak, launches=flash,
+               launches_per_step=per_step, loader_batches=len(loader),
+               profile_one_step=profile,
+               busy_share_of_step=profile["device_busy_ms"] / (1e3 * wall / TRAIN_STEPS))
+    del engine, model
     torch.cuda.empty_cache()
     return res
 
@@ -824,8 +1025,16 @@ def phase_flash(timer):
         dict(label="bf16 S512 block64 causal dropout0.1", dtype_name="bf16", causal=True,
              rate=0.1, FB=8, FS=512, block=64),
         dict(label="bf16 S256 block32 padded", dtype_name="bf16", FB=8, FS=256, block=32),
+        # fp16, the loss-scaled training path's routines
+        dict(label=FLASH_FP16_MAIN_CASE, dtype_name="fp16", rate=0.1),
+        dict(label="fp16 causal", dtype_name="fp16", causal=True, padded=False),
+        dict(label="fp16 D128 causal dropout0.1", dtype_name="fp16", causal=True, rate=0.1,
+             FD=128),
+        dict(label="fp16 S512 block64 causal dropout0.1", dtype_name="fp16", causal=True,
+             rate=0.1, FB=8, FS=512, block=64),
     )
-    return [_report("flash_case", flash_case(timer, **c)) for c in cases]
+    results = [_report("flash_case", flash_case(timer, **c)) for c in cases]
+    return results, _report("flash_overflow", flash_overflow_case())
 
 
 # loss and each gradient, kernels against plain versions, relative to the
@@ -835,7 +1044,9 @@ def phase_flash(timer):
 # an element can land one bf16 step (2^-8 of it) apart, and such flips
 # carry through two layers of bf16 GEMMs and layer norms; 2e-2 is five bf16
 # steps of the largest magnitude, FLASH_TOL's bound for one kernel.
-GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# fp16: the same flips at fp16's finer steps; 1e-2, half of bf16's, set
+# before the first fp16 run.
+GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2, "fp16": 1e-2}
 
 
 def phase_grad_oracle(dtype_name):
@@ -845,7 +1056,7 @@ def phase_grad_oracle(dtype_name):
     same Philox masks and the same hidden-dropout generators)."""
     import deepspeed_tpu_torch as dt
 
-    dtype = torch.float32 if dtype_name == "fp32" else torch.bfloat16
+    dtype = FLASH_DTYPES[dtype_name]
     tol = GRAD_TOL[dtype_name]
     cfg = dt.BertConfig.bert_large(num_hidden_layers=2, checkpoint_activations=True,
                                    checkpoint_policy="dots")
@@ -930,12 +1141,13 @@ def main():
     if "oracle" in phases:
         oracle = _report("oracle", _phase("oracle", phase_oracle))
     if "flash" in phases:
-        flash_cases = _phase("flash", phase_flash, timer)
+        flash_cases, flash_overflow = _phase("flash", phase_flash, timer)
     if "train" in phases:
         trained = _report("train", _phase("train", phase_train))
+        trained_fp16 = _report("train_fp16", _phase("train fp16", phase_train_fp16))
     if "grad" in phases:
         grad_oracle = [_report("grad_oracle", _phase(f"grad {d}", phase_grad_oracle, d))
-                       for d in ("fp32", "bf16")]
+                       for d in ("fp32", "bf16", "fp16")]
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -954,25 +1166,38 @@ def main():
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             main_case=main_case,
             cases=cases + (odd_cases if name == "decode_attention" else [])))
-    rep = next(c for c in flash_cases if c["case"] == FLASH_MAIN_CASE)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv", "db")}
-    for name, kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
-        source, replaces = registry.KERNEL_SOURCES[name]
-        entries.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=trained["launches"][name],
-            max_abs_err=max(c["max_abs_err"][o] for c in flash_cases for o in outputs[kind]),
-            **rep["kernels"][kind], main_case=FLASH_MAIN_CASE,
-            library_call=("scaled_dot_product_attention" if kind == "fwd" else
-                          "scaled_dot_product_attention backward (dq, dk, dv together)")))
-        if kind == "dq":   # the two backward kernels against SDPA's whole backward
-            entries[-1]["backward_by_case"] = [dict(case=c["case"], **c["backward"])
-                                               for c in flash_cases]
+    # the bf16 / fp32 routines (their launches from the bf16 Adam run), then
+    # the fp16 instantiations (their launches from the fp16 LAMB run)
+    for suffix, main_case, run, dtypes in (
+            ("", FLASH_MAIN_CASE, trained, ("bf16", "fp32")),
+            ("_fp16", FLASH_FP16_MAIN_CASE, trained_fp16, ("fp16",))):
+        rep = next(c for c in flash_cases if c["case"] == main_case)
+        cases = [c for c in flash_cases if c["case"].split()[0] in dtypes]
+        for name, kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
+            source, replaces = registry.KERNEL_SOURCES[name]
+            if suffix:
+                source = source.replace(".cu", "_fp16.cu")
+            entries.append(dict(
+                name=name + suffix, route="cuda", source=source, replaces=replaces,
+                launches=run["launches"][name],
+                max_abs_err=max(c["max_abs_err"][o] for c in cases for o in outputs[kind]),
+                **rep["kernels"][kind], main_case=main_case,
+                library_call=("scaled_dot_product_attention" if kind == "fwd" else
+                              "scaled_dot_product_attention backward (dq, dk, dv together)"),
+                cases=[dict(case=c["case"], max_abs_err=c["max_abs_err"], **c["kernels"][kind])
+                       for c in cases]))
+            if kind == "dq":   # the two backward kernels against SDPA's whole backward
+                entries[-1]["backward_by_case"] = [dict(case=c["case"], **c["backward"])
+                                                   for c in cases]
+            if suffix and kind != "fwd":
+                entries[-1]["loss_scaled_overflow"] = flash_overflow["verdicts"]
     card = card_info()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=entries, serve=served, oracle=oracle,
-                           flash_cases=flash_cases, train=trained,
+                           flash_cases=flash_cases, flash_overflow=flash_overflow,
+                           train=trained, train_fp16=trained_fp16,
                            grad_oracle=grad_oracle, torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)

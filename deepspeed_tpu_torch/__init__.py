@@ -11,9 +11,11 @@ Ported so far:
   over a GPT-2 model, on the paged decode-attention and banded
   sink+window attention kernels;
 - training: ``initialize()`` -> ``engine.train_step`` / ``train_batch``
-  for BERT pretraining (``BertForPreTraining``), bf16 with fp32 masters,
-  Adam/AdamW, activation checkpointing, on the flash-attention forward,
-  dq and dk/dv kernels with in-kernel dropout.
+  for BERT pretraining (``BertForPreTraining``), bf16 or fp16 (static or
+  dynamic loss scaling with overflow skips) with fp32 masters,
+  Adam/AdamW, LAMB or SGD, the LR schedules, the engine's data loader
+  over ``training_data=``, activation checkpointing, on the
+  flash-attention forward, dq and dk/dv kernels with in-kernel dropout.
 """
 
 from deepspeed_tpu_torch import kernels

@@ -7,13 +7,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dstorch {
 
 // dtype codes shared with the Python wrappers
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };
 
 // the masked-score sentinel of the JAX kernels (exp(-1e30 - m) == 0)
 constexpr float kNegBig = -1e30f;
@@ -45,7 +46,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- bf16 tensor-core and async-copy primitives (inline PTX) ---------------
+// ---- 16-bit tensor-core and async-copy primitives (inline PTX) -------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -92,9 +93,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same product with fp16 operands
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two floats rounded to bf16 and packed, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats rounded to fp16 (to inf past its range: no saturation) and
+// packed, the first in the low half
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 

@@ -38,7 +38,7 @@ from deepspeed_tpu_torch.kernels import build, registry
 DEFAULT_BLOCK = 128
 _NEG = -1e30
 _BIG = 1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _KERNEL_BLOCKS = (16, 32, 64, 128)
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 
@@ -346,7 +346,8 @@ def _flash_bwd_dkv_torch(q, k, v, bias, do, lse, delta, qlut, qcounts, block, ca
 def _check_cuda_inputs(name, q, k, v, bias, block, extra=()):
     B, H, S, D = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {q.dtype} not supported (float32 or bfloat16)")
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
+                         "(float32, bfloat16 or float16)")
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not supported {_KERNEL_HEAD_DIMS}")
     if block not in _KERNEL_BLOCKS or S % block:

@@ -7,8 +7,9 @@ checked with the JAX class's errors; duplicate JSON keys and fp16 + bf16
 are refused. ``world_size`` is the data-parallel world size: the
 ``torch.distributed`` world size when it is initialized, else 1.
 
-Honoured sections: ``optimizer`` (Adam, AdamW), ``bf16``,
-``gradient_clipping``, ``zero_optimization.stage`` 0,
+Honoured sections: ``optimizer`` (Adam, AdamW, Lamb, SGD), ``scheduler``
+(name and params), ``fp16`` (static or dynamic loss scaling) and
+``bf16``, ``gradient_clipping``, ``zero_optimization.stage`` 0,
 ``activation_checkpointing``, ``steps_per_print``, ``seed``,
 ``prescale_gradients`` and ``gradient_predivide_factor``. A config that
 enables a section or a switch the port does not run yet raises
@@ -34,6 +35,16 @@ from deepspeed_tpu_torch.runtime.constants import (
     DEEPSPEED_OPTIMIZERS,
     FP16,
     FP16_ENABLED,
+    FP16_HYSTERESIS,
+    FP16_HYSTERESIS_DEFAULT,
+    FP16_INITIAL_SCALE_POWER,
+    FP16_INITIAL_SCALE_POWER_DEFAULT,
+    FP16_LOSS_SCALE,
+    FP16_LOSS_SCALE_DEFAULT,
+    FP16_LOSS_SCALE_WINDOW,
+    FP16_LOSS_SCALE_WINDOW_DEFAULT,
+    FP16_MIN_LOSS_SCALE,
+    FP16_MIN_LOSS_SCALE_DEFAULT,
     GRADIENT_ACCUMULATION_STEPS,
     GRADIENT_CLIPPING,
     GRADIENT_CLIPPING_DEFAULT,
@@ -45,6 +56,8 @@ from deepspeed_tpu_torch.runtime.constants import (
     PRESCALE_GRADIENTS,
     PRESCALE_GRADIENTS_DEFAULT,
     SCHEDULER,
+    SCHEDULER_PARAMS,
+    SCHEDULER_TYPE_DEFAULT,
     SEED,
     SEED_DEFAULT,
     STEPS_PER_PRINT,
@@ -83,6 +96,43 @@ def get_fp16_enabled(param_dict):
     return False
 
 
+def get_loss_scale(param_dict):
+    if get_fp16_enabled(param_dict):
+        return get_scalar_param(param_dict[FP16], FP16_LOSS_SCALE, FP16_LOSS_SCALE_DEFAULT)
+    return FP16_LOSS_SCALE_DEFAULT
+
+
+def get_initial_dynamic_scale(param_dict):
+    if get_fp16_enabled(param_dict):
+        initial_scale_power = get_scalar_param(
+            param_dict[FP16], FP16_INITIAL_SCALE_POWER, FP16_INITIAL_SCALE_POWER_DEFAULT)
+    else:
+        initial_scale_power = FP16_INITIAL_SCALE_POWER_DEFAULT
+    return 2**initial_scale_power
+
+
+def get_dynamic_loss_scale_args(param_dict):
+    """The dynamic scaler's arguments when the fp16 section names any of
+    them, else None (the engine then takes its own defaults)."""
+    if not get_fp16_enabled(param_dict):
+        return None
+    fp16_dict = param_dict[FP16]
+    dynamic_props = [FP16_INITIAL_SCALE_POWER, FP16_LOSS_SCALE_WINDOW, FP16_MIN_LOSS_SCALE,
+                     FP16_HYSTERESIS]
+    if not any(d in fp16_dict for d in dynamic_props):
+        return None
+    return {
+        "init_scale": 2**get_scalar_param(fp16_dict, FP16_INITIAL_SCALE_POWER,
+                                          FP16_INITIAL_SCALE_POWER_DEFAULT),
+        "scale_window": get_scalar_param(fp16_dict, FP16_LOSS_SCALE_WINDOW,
+                                         FP16_LOSS_SCALE_WINDOW_DEFAULT),
+        "delayed_shift": get_scalar_param(fp16_dict, FP16_HYSTERESIS,
+                                          FP16_HYSTERESIS_DEFAULT),
+        "min_scale": get_scalar_param(fp16_dict, FP16_MIN_LOSS_SCALE,
+                                      FP16_MIN_LOSS_SCALE_DEFAULT),
+    }
+
+
 def get_bfloat16_enabled(param_dict):
     for key in (BFLOAT16, BFLOAT16_ALIAS):
         if key in param_dict:
@@ -99,6 +149,18 @@ def get_optimizer_name(param_dict):
 def get_optimizer_params(param_dict):
     if get_optimizer_name(param_dict) is not None and OPTIMIZER_PARAMS in param_dict[OPTIMIZER]:
         return param_dict[OPTIMIZER][OPTIMIZER_PARAMS]
+    return None
+
+
+def get_scheduler_name(param_dict):
+    if SCHEDULER in param_dict and TYPE in param_dict[SCHEDULER]:
+        return param_dict[SCHEDULER][TYPE]
+    return SCHEDULER_TYPE_DEFAULT
+
+
+def get_scheduler_params(param_dict):
+    if get_scheduler_name(param_dict) is not None and SCHEDULER_PARAMS in param_dict[SCHEDULER]:
+        return param_dict[SCHEDULER][SCHEDULER_PARAMS]
     return None
 
 
@@ -157,6 +219,9 @@ class DeepSpeedConfig:
 
         self.fp16_enabled = get_fp16_enabled(param_dict)
         self.bfloat16_enabled = get_bfloat16_enabled(param_dict)
+        self.loss_scale = get_loss_scale(param_dict)
+        self.initial_dynamic_scale = get_initial_dynamic_scale(param_dict)
+        self.dynamic_loss_scale_args = get_dynamic_loss_scale_args(param_dict)
         self.gradient_clipping = get_scalar_param(param_dict, GRADIENT_CLIPPING,
                                                   GRADIENT_CLIPPING_DEFAULT)
 
@@ -164,6 +229,9 @@ class DeepSpeedConfig:
         if self.optimizer_name is not None and self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
         self.optimizer_params = get_optimizer_params(param_dict)
+
+        self.scheduler_name = get_scheduler_name(param_dict)
+        self.scheduler_params = get_scheduler_params(param_dict)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size
@@ -215,16 +283,12 @@ class DeepSpeedConfig:
     def _check_ported(self, param_dict):
         """Refuse, by name, every enabled section this slice does not run."""
         todo = []
-        if self.fp16_enabled:
-            todo.append("fp16 (loss scaling)")
         if self.zero_enabled:
             todo.append(f"zero_optimization stage {self.zero_optimization_stage}")
         if self.zero_config.cpu_offload:
             todo.append("zero_optimization.cpu_offload")
         todo += [f"activation_checkpointing.{k}"
                  for k in self.activation_checkpointing_config.unported]
-        if param_dict.get(SCHEDULER) is not None:
-            todo.append("scheduler")
         if self.optimizer_name is not None and self.optimizer_name in DEEPSPEED_OPTIMIZERS \
                 and self.optimizer_name not in PORTED_OPTIMIZERS:
             todo.append(f"optimizer {self.optimizer_name}")

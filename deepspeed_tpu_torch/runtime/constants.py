@@ -9,6 +9,8 @@ OPTIMIZER = "optimizer"
 OPTIMIZER_PARAMS = "params"
 TYPE = "type"
 SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
 MAX_GRAD_NORM = "max_grad_norm"
 
 ADAM_OPTIMIZER = "adam"
@@ -18,11 +20,21 @@ ONEBIT_ADAM_OPTIMIZER = "onebitadam"
 SGD_OPTIMIZER = "sgd"
 DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
                         ONEBIT_ADAM_OPTIMIZER, SGD_OPTIMIZER]
-# what this slice of the port runs; the rest raise NotImplementedError
-PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER)
+# what the port runs; the rest raise NotImplementedError
+PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, SGD_OPTIMIZER)
 
 FP16 = "fp16"
 FP16_ENABLED = "enabled"
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
 BFLOAT16 = "bf16"
 BFLOAT16_ALIAS = "bfloat16"
 BFLOAT16_ENABLED = "enabled"
@@ -39,7 +51,7 @@ STEPS_PER_PRINT_DEFAULT = 10
 SEED = "seed"
 SEED_DEFAULT = 42
 
-# sections and switches of the JAX config this slice does not run: a
+# sections and switches of the JAX config the port does not run yet: a
 # config that enables one is refused by name
 UNPORTED_SECTIONS = ("progressive_layer_drop", "pipeline", "sparse_attention",
                      "telemetry", "resilience", "flops_profiler", "amp", "elasticity",

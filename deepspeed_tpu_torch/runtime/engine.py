@@ -5,9 +5,19 @@ Port of ``deepspeed_tpu/runtime/engine.py`` for the path
 ``forward`` / ``backward`` / ``step``), single process, ZeRO stage 0:
 
 - mixed precision as the JAX engine does it: the engine holds fp32
-  master parameters and fp32 Adam state, and the module's weights are
-  the compute-dtype (bf16) copy that every forward runs on, so LayerNorm
-  and softmax inputs are bf16 as in JAX (no ``torch.autocast``);
+  master parameters and fp32 optimizer state, and the module's weights
+  are the compute-dtype (bf16 or fp16) copy that every forward runs on,
+  so LayerNorm and softmax inputs are in that dtype as in JAX (no
+  ``torch.autocast``);
+- fp16 with static or dynamic loss scaling: the loss is multiplied by
+  the scale before backward, the accumulated gradients are checked for
+  inf / nan (the fp16 step's one host read), an overflowing step is
+  skipped (grad norm -1, the LR schedule held) and the scaler backs off;
+  the scaler's state lives on the device. bf16 and fp32 steps read
+  nothing on the host;
+- the optimizers Adam/AdamW, LAMB and SGD, an LR schedule from the
+  config (or ``lr_scheduler=``) whose LR feeds every update, and the
+  engine's own ``DeepSpeedDataLoader`` over ``training_data=``;
 - gradient accumulation over ``gradient_accumulation_steps`` into fp32
   buffers, with the JAX engine's factor (1/gas, or 1/(gas * predivide)
   under ``prescale_gradients``);
@@ -26,6 +36,8 @@ import torch
 
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.ops.sgd import SGD
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
     checkpoint_call,
 )
@@ -33,11 +45,22 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.constants import (
     ADAM_OPTIMIZER,
     ADAMW_OPTIMIZER,
+    LAMB_OPTIMIZER,
     MAX_GRAD_NORM,
+    SGD_OPTIMIZER,
 )
-from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
+    advance_scaler,
+    init_dynamic_scaler_state,
+)
+from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, has_overflow
+from deepspeed_tpu_torch.utils import distributed as dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
+
+ROUTE_TRAIN = "train"
 
 
 class DeepSpeedEngine:
@@ -47,10 +70,8 @@ class DeepSpeedEngine:
                  training_data=None, lr_scheduler=None, mpu=None,
                  dist_init_required=None, collate_fn=None, config=None,
                  config_params=None, device="cuda"):
-        for name, value in (("training_data", training_data), ("lr_scheduler", lr_scheduler),
-                            ("mpu", mpu), ("collate_fn", collate_fn)):
-            if value is not None:
-                raise NotImplementedError(f"initialize({name}=...) is not ported yet")
+        if mpu is not None:
+            raise NotImplementedError("initialize(mpu=...) is not ported yet")
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
         if not isinstance(model, torch.nn.Module):
@@ -69,9 +90,12 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self.training = True
         self.lr_scheduler = None
-        self.training_dataloader = None
+        self.training_data = training_data
+        self.collate_fn = collate_fn
 
-        if self._config.bfloat16_enabled:
+        if self._config.fp16_enabled:
+            self.compute_dtype = torch.float16
+        elif self._config.bfloat16_enabled:
             self.compute_dtype = torch.bfloat16
         else:
             self.compute_dtype = torch.float32
@@ -100,12 +124,17 @@ class DeepSpeedEngine:
             batch_size=self.train_micro_batch_size_per_gpu(), num_workers=1,
             steps_per_output=self.steps_per_print(),
             logging_fn=lambda msg: log_dist(msg, ranks=[0]))
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
 
         self.optimizer = optimizer if optimizer is not None else self._configure_basic_optimizer()
         self.basic_optimizer = self.optimizer
         self.opt_state = None
+        self._configure_lr_scheduler(lr_scheduler)
+        self._configure_loss_scaler()
         self._step_gen = torch.Generator().manual_seed(int(self._config.seed))
         self.last_grad_norm = None
+        self._last_overflow = False
         self._config.print("DeepSpeedEngine configuration")
 
     # ------------------------------------------------------------------
@@ -125,6 +154,33 @@ class DeepSpeedEngine:
 
     def bfloat16_enabled(self):
         return self._config.bfloat16_enabled
+
+    def fp16_enabled(self):
+        return self._config.fp16_enabled
+
+    def loss_scale(self):
+        """The current loss scale as a host float (a host read under
+        dynamic scaling); 1.0 without fp16."""
+        if self.fp16_enabled():
+            if self.dynamic_loss_scale():
+                return float(self.scaler_state.cur_scale)
+            return self._config.loss_scale
+        return 1.0
+
+    def dynamic_loss_scale(self):
+        return self._config.loss_scale == 0 and self.fp16_enabled()
+
+    def initial_dynamic_scale(self):
+        return self._config.initial_dynamic_scale
+
+    def dynamic_loss_scale_args(self):
+        return self._config.dynamic_loss_scale_args
+
+    def scheduler_name(self):
+        return self._config.scheduler_name
+
+    def scheduler_params(self):
+        return self._config.scheduler_params
 
     def gradient_clipping(self):
         return self._config.gradient_clipping
@@ -157,7 +213,59 @@ class DeepSpeedEngine:
         name = name.lower()
         if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
             return FusedAdam(adam_w_mode=(name == ADAMW_OPTIMIZER), **params)
+        if name == LAMB_OPTIMIZER:
+            return FusedLamb(**params)
+        if name == SGD_OPTIMIZER:
+            return SGD(**params)
         raise ValueError(f"Unknown optimizer name {name}")
+
+    def _configure_lr_scheduler(self, client_lr_scheduler):
+        name = self.scheduler_name()
+        if name is not None:
+            if client_lr_scheduler is not None:
+                raise ValueError("Found both scheduler in config and lr_scheduler passed "
+                                 "to initialize")
+            self.lr_scheduler = get_lr_schedule(name, self.scheduler_params())
+            log_dist(f"DeepSpeed using configured LR scheduler = {name}", ranks=[0])
+        else:
+            self.lr_scheduler = client_lr_scheduler
+        # torch-style: the LR of step k is set at the end of step k - 1, so
+        # prime the schedule once (a skipped step then leaves the LR as is)
+        if self.lr_scheduler is not None and \
+                getattr(self.lr_scheduler, "last_batch_iteration", 0) < 0:
+            self.lr_scheduler.step()
+        log_dist(f"DeepSpeed LR Scheduler = {self.lr_scheduler}", ranks=[0])
+
+    def _configure_loss_scaler(self):
+        """The scaler's device state: dynamic (the fp16 section's
+        arguments, hysteresis 2 unless it names one), static (the
+        configured scale, never updated), or 1.0 without fp16."""
+        dev = self.device
+        if self.dynamic_loss_scale():
+            args = self.dynamic_loss_scale_args() or {}
+            self.scaler_state = init_dynamic_scaler_state(
+                init_scale=args.get("init_scale", self.initial_dynamic_scale()),
+                delayed_shift=args.get("delayed_shift", 2), device=dev)
+            self._scaler_kwargs = dict(scale_window=args.get("scale_window", 1000),
+                                       min_scale=args.get("min_scale", 1.0),
+                                       delayed_shift=args.get("delayed_shift", 2))
+        else:
+            scale = self._config.loss_scale if self.fp16_enabled() else 1.0
+            self.scaler_state = init_dynamic_scaler_state(init_scale=scale, device=dev)
+            self._scaler_kwargs = None
+
+    def deepspeed_io(self, dataset, batch_size=None, route=ROUTE_TRAIN, pin_memory=None,
+                     data_sampler=None, collate_fn=None, num_local_io_workers=None):
+        """A ``DeepSpeedDataLoader`` over ``dataset``: this process's
+        micro-batches of its share of the samples."""
+        if batch_size is None:
+            batch_size = self.train_micro_batch_size_per_gpu()
+        return DeepSpeedDataLoader(
+            dataset=dataset, batch_size=batch_size,
+            collate_fn=collate_fn or self.collate_fn,
+            num_replicas=dist.get_world_size(), rank=dist.get_rank(),
+            data_sampler=data_sampler,
+            tput_timer=self.tput_timer if route == ROUTE_TRAIN else None)
 
     def _configure_activation_checkpointing(self):
         """With the section enabled, flip the model config's per-layer
@@ -227,35 +335,77 @@ class DeepSpeedEngine:
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self._master)
 
+    def _scaled(self, loss):
+        """The loss to backpropagate: times the loss scale under fp16."""
+        return loss * self.scaler_state.cur_scale if self.fp16_enabled() else loss
+
     def _update(self):
-        """Clip (or just measure) the accumulated gradients, step the
-        optimizer on the fp32 masters, cast the masters into the module,
-        and zero the accumulators."""
+        """Under fp16, check the accumulated gradients for overflow (the one
+        host read of the step) and skip an overflowing step; otherwise
+        unscale, clip (or just measure), step the optimizer on the fp32
+        masters at the schedule's LR and cast the masters into the module.
+        Then advance the loss scaler and zero the accumulators. Returns the
+        overflow verdict as a host bool."""
         self._ensure_opt_state()
         grads = self._acc_grads
-        clip = self.gradient_clipping()
-        if clip > 0:
-            gnorm = clip_grad_norm_(grads, clip)
+        overflow = self.fp16_enabled() and bool(has_overflow(grads))
+        if overflow:
+            gnorm = torch.tensor(-1.0, device=self.device)
         else:
-            gnorm = global_norm(grads)
-        lr = getattr(self.basic_optimizer, "lr", 1e-3)
+            if self.fp16_enabled():
+                torch._foreach_div_(grads, self.scaler_state.cur_scale)
+            clip = self.gradient_clipping()
+            if clip > 0:
+                gnorm = clip_grad_norm_(grads, clip)
+            else:
+                gnorm = global_norm(grads)
+            with torch.no_grad():
+                self.optimizer.update(grads, self.opt_state, self._master,
+                                      lr=self.get_lr()[0], names=self._param_names)
+                if self.compute_dtype != torch.float32:
+                    torch._foreach_copy_([p.data for p in self._params], self._master)
+        self.scaler_state = advance_scaler(self.scaler_state, overflow,
+                                           self.dynamic_loss_scale(), self._scaler_kwargs)
         with torch.no_grad():
-            self.optimizer.update(grads, self.opt_state, self._master, lr=lr,
-                                  names=self._param_names)
-            if self.compute_dtype != torch.float32:
-                torch._foreach_copy_([p.data for p in self._params], self._master)
             torch._foreach_zero_(self._acc_grads)
         self.last_grad_norm = gnorm
+        return overflow
 
-    def _finish_step_bookkeeping(self):
+    def _finish_step_bookkeeping(self, overflow):
+        """Skip counting and the LR schedule, which steps only on a clean
+        step."""
+        self._last_overflow = overflow
+        if overflow:
+            self.skipped_steps += 1
+            if self.dynamic_loss_scale():
+                cur_scale = float(self.scaler_state.cur_scale)
+                logger.info("[deepspeed_tpu_torch] OVERFLOW! Skipping step. Attempted loss "
+                            f"scale: {cur_scale * 2}, reducing to {cur_scale}")
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step()
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         if self.global_steps % self.steps_per_print() == 0:
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
-                     f"lr={self.get_lr()}", ranks=[0])
+                     f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
+
+    def _optimizer_base_lr(self):
+        return getattr(self.basic_optimizer, "lr", 1e-3)
 
     def get_lr(self):
-        return [getattr(self.basic_optimizer, "lr", 1e-3)]
+        if self.lr_scheduler is not None:
+            try:
+                return self.lr_scheduler.get_last_lr()
+            except AssertionError:
+                # not stepped yet: peek without moving the schedule
+                if hasattr(self.lr_scheduler, "get_lr"):
+                    return self.lr_scheduler.get_lr()
+        return [self._optimizer_base_lr()]
+
+    def get_mom(self):
+        if self.lr_scheduler is not None and hasattr(self.lr_scheduler, "get_mom"):
+            return self.lr_scheduler.get_mom()
+        return [getattr(self.basic_optimizer, "betas", (0.9,))[0]]
 
     # ------------------------------------------------------------------
     # three-call API
@@ -273,9 +423,10 @@ class DeepSpeedEngine:
     __call__ = forward
 
     def backward(self, loss):
-        """Backpropagate ``loss`` and accumulate the gradients (times the
-        accumulation factor) into the fp32 buffers."""
-        loss.backward()
+        """Backpropagate ``loss`` (times the loss scale under fp16) and
+        accumulate the gradients (times the accumulation factor) into the
+        fp32 buffers."""
+        self._scaled(loss).backward()
         self._accumulate()
         self.micro_steps += 1
         return loss
@@ -287,8 +438,7 @@ class DeepSpeedEngine:
         """Apply the accumulated gradients at an accumulation boundary."""
         if self.is_gradient_accumulation_boundary() and self.micro_steps > 0 \
                 and self._acc_grads is not None:
-            self._update()
-            self._finish_step_bookkeeping()
+            self._finish_step_bookkeeping(self._update())
             self.tput_timer.stop(self.global_steps % self.steps_per_print() == 0)
 
     # ------------------------------------------------------------------
@@ -297,7 +447,8 @@ class DeepSpeedEngine:
     def train_step(self, microbatches):
         """One optimizer step over ``gradient_accumulation_steps``
         microbatches (each a tuple of batch tensors). Returns the mean
-        loss as a device scalar: nothing here waits for the card."""
+        (unscaled) loss as a device scalar: nothing here waits for the
+        card but, under fp16, the overflow check."""
         gas = self.gradient_accumulation_steps()
         micro = [self._batch(mb) for mb in microbatches]
         assert len(micro) == gas, f"need {gas} microbatches, got {len(micro)}"
@@ -305,20 +456,27 @@ class DeepSpeedEngine:
         losses = []
         for batch in micro:
             loss = self._loss(batch)
-            loss.backward()
+            self._scaled(loss).backward()
             self._accumulate()
             losses.append(loss.detach())
         self.micro_steps += gas
-        self._update()
+        overflow = self._update()
         loss = torch.stack(losses).mean()
-        self._finish_step_bookkeeping()
+        self._finish_step_bookkeeping(overflow)
         report = self.global_steps % self.steps_per_print() == 0
         self.tput_timer.stop(report, sync=report)
         return loss
 
-    def train_batch(self, data_iter):
+    def train_batch(self, data_iter=None):
         """``train_step`` over the next ``gradient_accumulation_steps``
-        batches of ``data_iter``; returns the mean loss as a host float."""
+        batches of ``data_iter``; returns the mean loss as a host float.
+        Without ``data_iter`` it reads a fresh iterator of the engine's own
+        loader (``training_data=``), which starts at the loader's first
+        batch on every call, as the JAX engine's does."""
+        if data_iter is None:
+            assert self.training_dataloader is not None, \
+                "train_batch() without data_iter needs initialize(training_data=...)"
+            data_iter = iter(self.training_dataloader)
         micro = [next(data_iter) for _ in range(self.gradient_accumulation_steps())]
         return float(self.train_step(micro))
 

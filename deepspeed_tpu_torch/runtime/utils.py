@@ -1,10 +1,12 @@
-"""Runtime helpers: overflow check, global norm, gradient clipping, and
-seed folding.
+"""Runtime helpers: overflow check (device flag and ``CheckOverflow``),
+global norm, gradient clipping, and seed folding.
 
 Port of ``deepspeed_tpu/runtime/utils.py`` (:29-113) over lists of
 tensors instead of pytrees, plus ``fold_seed``, which plays the part of
 ``jax.random.fold_in`` for the port's integer seeds.
 """
+
+import math
 
 import torch
 
@@ -35,6 +37,25 @@ def has_overflow(tensors):
         return torch.tensor(False)
     flags = [~torch.isfinite(t).all() for t in tensors]
     return torch.stack(flags).any()
+
+
+class CheckOverflow:
+    """Host-side overflow checker over a list of tensors (``CheckOverflow``
+    of the JAX package): one host read of the device flag a check."""
+
+    def __init__(self, param_groups=None, mpu=None):
+        self.mpu = mpu
+        self.params = param_groups
+
+    def check_using_norm(self, norm_group):
+        norms = [float(n) for n in norm_group]
+        return -1 in norms or any(not math.isfinite(n) for n in norms)
+
+    def check(self, param_groups=None):
+        return self.has_overflow(param_groups if param_groups is not None else self.params)
+
+    def has_overflow(self, params):
+        return bool(has_overflow(params))
 
 
 def global_norm(tensors):

@@ -12,7 +12,9 @@ numpy seeds and go to both packages.
 Tolerances: fp32 1e-5 (the same fp32 math summed in another order);
 bf16 2e-2 of the compared tensor's largest magnitude (probabilities and
 ds are rounded to bf16 at the same points on both sides, but a different
-summation order can flip a rounding). With dropout on, the port's bits
+summation order can flip a rounding); fp16 2e-3 for the same reason,
+about two fp16 steps (2**-10) at the largest magnitude where bf16's 2e-2
+is under three of its own (2**-7). With dropout on, the port's bits
 (Philox4x32-10) differ from the TPU kernel's by design, so dropout is
 checked statistically and against an explicit-mask reference.
 """
@@ -27,9 +29,10 @@ import torch  # noqa: E402
 from deepspeed_tpu.ops.transformer import attention as J  # noqa: E402
 from deepspeed_tpu_torch.ops.transformer import attention as T  # noqa: E402
 
-TOL = {"fp32": 1e-5, "bf16": 2e-2}
+TOL = {"fp32": 1e-5, "bf16": 2e-2, "fp16": 2e-3}
 DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
-          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16),
+          "fp16": (np.float32, jnp.float16, torch.float16)}
 
 
 def _close(got, want, tol):
@@ -67,7 +70,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("block", [16, 32])
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernels_match_pallas_interpret(name, block, dtype):

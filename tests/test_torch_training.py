@@ -49,6 +49,7 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (  # noqa: E402
     DeepSpeedTransformerLayer,
 )
 from deepspeed_tpu_torch.runtime import config as tconfig  # noqa: E402
+from deepspeed_tpu_torch.runtime import lr_schedules as tsched  # noqa: E402
 
 SEQ = 128   # the kernels' block: the attention runs kernels 1-3's plain versions
 _TO_NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
@@ -283,10 +284,8 @@ def test_config_errors_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("section", [
-    {"fp16": {"enabled": True}}, {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 2}},
     {"zero_optimization": {"stage": 0, "cpu_offload": True}},
-    {"scheduler": {"type": "WarmupLR", "params": {}}},
-    {"optimizer": {"type": "Lamb", "params": {}}}, {"optimizer": {"type": "SGD"}},
     {"optimizer": {"type": "OneBitAdam"}}, {"progressive_layer_drop": {"enabled": True}},
     {"pipeline": {"stages": 2}}, {"sparse_attention": {"mode": "fixed"}},
     {"telemetry": {"enabled": True}}, {"resilience": {}},
@@ -299,6 +298,81 @@ def test_config_errors_match_jax(tmp_path):
 def test_config_refuses_sections_not_ported(section):
     with pytest.raises(NotImplementedError, match="not ported"):
         tconfig.DeepSpeedConfig({"train_batch_size": 4, **section}, world_size=1)
+
+
+class _Quadratic(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        torch.manual_seed(0)
+        self.lin = torch.nn.Linear(3, 1)
+
+    def forward(self, x):
+        return (self.lin(x) ** 2).mean()
+
+
+@pytest.mark.parametrize("section", [
+    {"fp16": {"enabled": True}},
+    {"fp16": {"enabled": True, "loss_scale": 128}},
+    {"fp16": {"enabled": True, "initial_scale_power": 16, "loss_scale_window": 500,
+              "hysteresis": 1, "min_loss_scale": 4}},
+    {"scheduler": {"type": "WarmupLR", "params": {"warmup_max_lr": 0.01}}},
+    {"scheduler": {"type": "OneCycle", "params": {"cycle_max_lr": 0.01}}},
+    {"optimizer": {"type": "Lamb", "params": {"lr": 2e-3, "max_coeff": 0.3}}},
+    {"optimizer": {"type": "SGD", "params": {"lr": 0.1, "momentum": 0.9}}},
+])
+def test_config_builds_an_engine_for_sections_now_ported(section):
+    """fp16, schedulers, Lamb and SGD build an engine, and the parsed
+    values equal the JAX ``DeepSpeedConfig``'s."""
+    cfg = {"train_batch_size": 4, "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+           **section}
+    want = jconfig.DeepSpeedConfig(dict(cfg), world_size=1)
+    got = tconfig.DeepSpeedConfig(dict(cfg), world_size=1)
+    for key in ("fp16_enabled", "loss_scale", "initial_dynamic_scale",
+                "dynamic_loss_scale_args", "scheduler_name", "scheduler_params",
+                "optimizer_name", "optimizer_params"):
+        assert getattr(got, key) == getattr(want, key), key
+
+    engine, opt, loader, sched = dt.initialize(model=_Quadratic(), config=cfg, device="cpu")
+    assert engine.fp16_enabled() == want.fp16_enabled
+    assert engine.compute_dtype == (torch.float16 if want.fp16_enabled else torch.float32)
+    assert type(opt).__name__ == {"adam": "FusedAdam", "lamb": "FusedLamb",
+                                  "sgd": "SGD"}[want.optimizer_name]
+    assert (sched is None) == (want.scheduler_name is None)
+    assert loader is None
+    if want.fp16_enabled:
+        dynamic = want.loss_scale == 0
+        assert engine.dynamic_loss_scale() == dynamic
+        args = want.dynamic_loss_scale_args or {}
+        assert engine.loss_scale() == (args.get("init_scale", want.initial_dynamic_scale)
+                                       if dynamic else want.loss_scale)
+
+
+
+def test_engine_lr_scheduler_argument_and_conflict():
+    """A schedule passed as ``lr_scheduler=`` is primed once and feeds
+    the optimizer: SGD's step is exactly lr times the gradient."""
+    cfg = {"train_batch_size": 2, "optimizer": {"type": "SGD", "params": {"lr": 0.5}}}
+    sched = tsched.WarmupLR(warmup_min_lr=0.0, warmup_max_lr=0.2, warmup_num_steps=3)
+    engine, _, _, got = dt.initialize(model=_Quadratic(), config=cfg, lr_scheduler=sched,
+                                      device="cpu")
+    assert got is sched and sched.last_batch_iteration == 0   # primed once
+    x = torch.ones(2, 3)
+    lrs = []
+    for _ in range(4):
+        lrs.append(engine.get_lr()[0])
+        before = engine.module.lin.bias.detach().clone()
+        loss = engine.forward(x)
+        engine.backward(loss)
+        grad = engine._acc_grads[1].clone()
+        engine.step()
+        torch.testing.assert_close(engine.module.lin.bias.detach(), before - lrs[-1] * grad)
+    want = tsched.WarmupLR(warmup_min_lr=0.0, warmup_max_lr=0.2, warmup_num_steps=3)
+    assert lrs == [want.step()[0] for _ in range(4)]
+    assert engine.get_mom() == [0.9]                # SGD has no betas: the default
+    with pytest.raises(ValueError, match="both scheduler"):
+        dt.initialize(model=_Quadratic(), device="cpu",
+                      config=dict(cfg, scheduler={"type": "WarmupLR", "params": {}}),
+                      lr_scheduler=tsched.WarmupLR())
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +475,7 @@ def _record_grads(engine):
 
     def recording():
         seen.append([g.clone() for g in engine._acc_grads])
-        update()
+        return update()
 
     engine._update = recording
     return seen
