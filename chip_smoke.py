@@ -46,10 +46,27 @@ prints no result line):
    every step run at the schedule's LR (held on a skipped step);
 7. at BERT-large width with 2 layers and dropout 0.1, in fp32, bf16 and
    fp16, hold the loss and every parameter's gradient on the kernels
-   against the same model with the plain attention versions swapped in.
+   against the same model with the plain attention versions swapped in;
+8. (``zero``) hold the host Adam of ZeRO-Offload (``csrc/cpu_adam.cpp``,
+   built by g++) against its plain version bit for bit on this machine's
+   CPU at BERT-large's 336,232,258 elements, and time it beside its plain
+   version, ``torch._fused_adamw_`` and its bound (28 bytes an element
+   at the fastest of four host memory streams); start NCCL at world 1
+   and train phase 6's bf16 Adam BERT-large 3 steps at ZeRO stages 0, 0
+   again, 1, 2 and 3 and ZeRO-2 + ``cpu_offload`` sequential and
+   streamed (4 buckets) under deterministic algorithms: each stage's
+   losses and final masters must equal stage 0's, and streamed
+   sequential's, bit for bit; then, under the default algorithms,
+   stage 0, offload sequential and offload streamed, 3 warm-up and 10
+   timed steps each: the loss must fall, peak device memory under
+   offload stay below stage 0's, and the flash kernels launch 48/24/24
+   times a step; last, report whether stage 0 run twice under the
+   default algorithms agrees with itself, and which embedding-backward
+   kernels each mode launches.
 
-``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad) while
-a kernel is being worked on; such a run prints no result line.
+``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad,
+zero) while a kernel is being worked on; such a run prints no result
+line.
 
 The line before the last is the kernels' JSON, with the card's name and
 power limit printed before it; the last line is the run's JSON result.
@@ -58,6 +75,8 @@ power limit printed before it; the last line is the run's JSON result.
 import argparse
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -976,7 +995,329 @@ class _PlainAttention:
             setattr(fa, attr, fn)
 
 
-PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad")
+# phase 8: ZeRO and ZeRO-Offload at BERT-large width (the bf16 Adam run of
+# phase 6 with only zero_optimization changed)
+ZERO_STEPS = 3
+OFFLOAD_BUCKETS = 4                         # the streamed run; 1 is sequential
+CPU_ADAM_N = 336_232_258                    # BERT-large's parameters
+CPU_ADAM_BYTES = 28                         # read p, g, m, v; write p, m, v (fp32)
+CPU_ADAM_HP = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+
+def _host_ms(fns, iters):
+    """Median host time of each of ``fns`` (name -> a CPU computation) over
+    ``iters`` rounds after one warm-up round. A round runs each once, in
+    turn, so that a change in the host's load falls on all of them."""
+    times = {k: [] for k in fns}
+    for i in range(iters + 1):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            if i:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def cpu_adam_case():
+    """The host Adam kernel against its plain version on this machine's
+    CPU at BERT-large's element count: one AdamW step from the same
+    state, bit for bit; then the plain version's time (median of 3), and,
+    in turns over 5 rounds, the kernel's, the kernel built without
+    ``-ffp-contract=off``, ``torch._fused_adamw_`` on the CPU and four
+    memory streams over the same arrays: a copy, an add, a sum and the
+    fused AdamW again, each with its writes counted twice (write-allocate).
+    The bound: 28 bytes an element at the fastest stream's rate."""
+    import ctypes
+
+    from deepspeed_tpu_torch.kernels import build
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam, cpu_adam_reference
+
+    n, hp = CPU_ADAM_N, CPU_ADAM_HP
+    gen = torch.Generator().manual_seed(7)
+    p0 = torch.randn(n, generator=gen)
+    grad = torch.randn(n, generator=gen) * 1e-2
+    opt = DeepSpeedCPUAdam(lr=hp["lr"], betas=(hp["beta1"], hp["beta2"]), eps=hp["eps"],
+                           weight_decay=hp["weight_decay"])
+    master = p0.clone()
+    opt.init_host(master)
+    ref, m, v = p0.clone(), torch.zeros(n), torch.zeros(n)
+    opt.step_host(master, grad)
+    plain = dict(hp, adamw=True, bias_correction=True)
+    cpu_adam_reference(ref, grad, m, v, step=1, **plain)
+    st = opt._host_state
+    err = max(float((master - ref).abs().max()), float((st.exp_avg - m).abs().max()),
+              float((st.exp_avg_sq - v).abs().max()))
+    if not (torch.equal(master, ref) and torch.equal(st.exp_avg, m)
+            and torch.equal(st.exp_avg_sq, v)):
+        raise RuntimeError(f"cpu_adam differs from its plain version (max |err| {err})")
+    steps = iter(range(2, 100))
+    plain_ms = _host_ms({"plain": lambda: cpu_adam_reference(ref, grad, m, v,
+                                                             step=next(steps), **plain)},
+                        3)["plain"]
+    lib_fast = build.load_host_library(tuple(f for f in build.HOST_FLAGS
+                                             if f != "-ffp-contract=off"))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    dst = torch.empty_like(p0)
+    fns = {"kernel": lambda: opt.step_host(master, grad),
+           "contracted_build": lambda: lib_fast.ds_adam_step(
+               ptr(ref), ptr(grad), ptr(m), ptr(v), n, hp["lr"], hp["beta1"], hp["beta2"],
+               hp["eps"], hp["weight_decay"], 1, 1, 1),
+           "copy": lambda: dst.copy_(p0), "add": lambda: torch.add(p0, grad, out=dst),
+           "sum": lambda: p0.sum()}
+    fused = lambda: torch._fused_adamw_(
+        [p0], [grad], [m], [v], [], [torch.tensor(1.0)], lr=hp["lr"], beta1=hp["beta1"],
+        beta2=hp["beta2"], weight_decay=hp["weight_decay"], eps=hp["eps"], amsgrad=False,
+        maximize=False)
+    try:
+        fused()
+    except (RuntimeError, NotImplementedError) as e:
+        library_error = str(e)[:200]
+    else:
+        fns["fused_adamw"], library_error = fused, None
+    ms = _host_ms(fns, 5)
+    # the host's memory rate: the fastest stream over arrays of n fp32, each
+    # counted by the bytes it moves: an array read once, an array written
+    # twice (a store to a line not in the cache first reads it)
+    stream_bytes = {"copy": 3 * n * 4, "add": 4 * n * 4, "sum": n * 4,
+                    "fused_adamw": (4 + 2 * 3) * n * 4}
+    rates = {k: b / (ms[k] / 1e3) for k, b in stream_bytes.items() if k in ms}
+    rate_from = max(rates, key=rates.get)
+    del dst, p0, grad, master, m, v, ref
+    return dict(case=f"AdamW step of {n} fp32 elements", max_abs_err=err, ms=ms["kernel"],
+                plain_ms=plain_ms, library_ms=ms.get("fused_adamw"),
+                library_error=library_error, contracted_build_ms=ms["contracted_build"],
+                host_bytes_per_s=rates[rate_from], host_rate_from=rate_from,
+                host_stream_ms={k: ms[k] for k in rates}, host_stream_bytes_per_s=rates,
+                bound_ms=CPU_ADAM_BYTES * n / rates[rate_from] * 1e3, bound_by="bytes",
+                threads=torch.get_num_threads())
+
+
+def _pinned_rates():
+    """D2H and H2D between the card and pinned host memory, 1 GiB, device
+    time by CUDA events, median of 5."""
+    dev = torch.empty(2 ** 28, device="cuda")
+    host = torch.empty(2 ** 28, pin_memory=True)
+    rates = {}
+    for name, (dst, src) in {"d2h": (host, dev), "h2d": (dev, host)}.items():
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        rates[f"{name}_bytes_per_s"] = 2 ** 30 / (statistics.median(times[1:]) / 1e3)
+    return rates
+
+
+def _zero_engine(**zero):
+    """BERT-large bf16 Adam as phase 6 trains it, with ``zero``."""
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.BertConfig.bert_large(checkpoint_policy="dots")
+    model = dt.init_bert(cfg, seed=0, device="cuda")
+    ds_config = {"train_batch_size": FB, "train_micro_batch_size_per_gpu": FB,
+                 "gradient_accumulation_steps": 1,
+                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                 "bf16": {"enabled": True}, "zero_optimization": zero,
+                 "activation_checkpointing": {"enabled": True}, "steps_per_print": 1000}
+    engine, _, _, _ = dt.initialize(model=model, config=ds_config)
+    return engine, _bert_batch(cfg, FB, FS)
+
+
+def _free(engine):
+    close = getattr(engine.optimizer, "close", None)
+    if close is not None:
+        close()
+    del engine
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zero():
+    """Phase 8: the host Adam kernel against its plain version; under
+    deterministic algorithms, 3 steps of ZeRO stages 1, 2 and 3 through
+    NCCL at world 1 against stage 0 (and stage 0 against itself, the
+    control), and of ZeRO-2 + cpu_offload streamed against sequential, bit
+    for bit; then under the default algorithms stage 0, offload
+    sequential and offload streamed, 3 warm-up and 10 timed steps each:
+    losses finite and falling, peak device memory under offload below
+    stage 0's, the flash kernels' and the host Adam's launches."""
+    import tempfile
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.runtime.zero import mem_estimator
+
+    res = {"cpu_adam": _report("cpu_adam_case", cpu_adam_case())}
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            res["backend"] = torch.distributed.get_backend()
+            # bit-for-bit comparisons of whole runs: PyTorch's deterministic
+            # algorithms (with cuBLAS's fixed workspaces, set in main)
+            torch.use_deterministic_algorithms(True)
+            try:
+                res["bit_for_bit"] = _zero_equalities(failures)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            res["timed"] = _zero_timed(dt, failures)
+            res["default_algorithms"] = _default_algorithms_probe()
+        finally:
+            torch.distributed.destroy_process_group()
+    res["mem_estimate_gb"] = {
+        name: {k: v / 2 ** 30 for k, v in mem_estimator.estimate_zero_model_states_mem_needs(
+            CPU_ADAM_N, **kw).items() if k != "breakdown"}
+        for name, kw in (("stage0", dict(stage=0)), ("stage2", dict(stage=2)),
+                         ("offload_seq", dict(stage=2, cpu_offload=True)),
+                         ("offload_stream", dict(stage=2, cpu_offload=True,
+                                                 offload_stream_buckets=OFFLOAD_BUCKETS)))}
+    res["pinned"] = _pinned_rates()
+    res["failures"] = failures
+    if failures:    # every check of the phase ran; any failure fails it
+        print("zero", json.dumps(res), flush=True)
+        raise RuntimeError("phase zero failed: " + "; ".join(failures))
+    return res
+
+
+OFFLOAD_SEQUENTIAL = dict(stage=2, cpu_offload=True, offload_stream_buckets=1)
+OFFLOAD_STREAMED = dict(stage=2, cpu_offload=True, offload_stream_buckets=OFFLOAD_BUCKETS)
+
+
+def _host_masters(engine):
+    """A host copy of the engine's fp32 masters, by name."""
+    return {k: v.to("cpu", copy=True) for k, v in engine.master_params().items()}
+
+
+def _zero_equalities(failures):
+    """ZERO_STEPS steps of each run from the same weights and batch; each
+    run's losses and final fp32 masters against its reference's."""
+    runs = {}
+    for label, zero in (("stage0", dict(stage=0)), ("stage0_again", dict(stage=0)),
+                        ("stage1", dict(stage=1)), ("stage2", dict(stage=2)),
+                        ("stage3", dict(stage=3)), ("offload_sequential", OFFLOAD_SEQUENTIAL),
+                        ("offload_streamed", OFFLOAD_STREAMED)):
+        engine, batch = _zero_engine(**zero)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(engine.train_step([batch])) for _ in range(ZERO_STEPS)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[label] = (losses, _host_masters(engine), peak)
+        _free(engine)
+    out = {}
+    for label, against in (("stage0_again", "stage0"), ("stage1", "stage0"),
+                           ("stage2", "stage0"), ("stage3", "stage0"),
+                           ("offload_streamed", "offload_sequential")):
+        (losses, master, peak), (want_losses, want_master, _) = runs[label], runs[against]
+        diff = {k: float((master[k] - w).abs().max()) for k, w in want_master.items()
+                if not torch.equal(master[k], w)}
+        same = losses == want_losses and not diff
+        worst = sorted(diff.items(), key=lambda kv: -kv[1])[:5]
+        out[label] = dict(against=against, equal=same, losses=losses, peak_mem_gb=peak,
+                          params_differing=len(diff), worst_param_diffs=worst)
+        if not same:
+            failures.append(f"{label} differs from {against}: losses {losses} against "
+                            f"{want_losses}, {len(diff)} masters differ, {worst}")
+    out["stage0"] = dict(losses=runs["stage0"][0], peak_mem_gb=runs["stage0"][2])
+    return out
+
+
+def _embedding_backward_kernels(engine, batch):
+    """The CUDA kernels of one training step whose names mark the
+    embedding tables' backward (``compute_grad_weight*``, ``sum_and_scatter``),
+    with their launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.train_step([batch])
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        m = re.search(r"(compute_grad_weight\w*|sum_and_scatter|krn_partial_to_segment_idx)",
+                      e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            names[m.group(1)] = names.get(m.group(1), 0) + 1
+    return names
+
+
+def _default_algorithms_probe():
+    """Report only: why the bit-for-bit runs use deterministic algorithms.
+    Stage 0 twice under the default algorithms (ZERO_STEPS steps each from
+    the same weights and batch: do the runs agree?), and the embedding
+    backward's kernels in a step under each mode."""
+    runs, kernels = [], {}
+    for _ in range(2):
+        engine, batch = _zero_engine(stage=0)
+        losses = [float(engine.train_step([batch])) for _ in range(ZERO_STEPS)]
+        runs.append((losses, _host_masters(engine)))
+        if len(runs) == 2:
+            kernels["default"] = _embedding_backward_kernels(engine, batch)
+            torch.use_deterministic_algorithms(True)
+            try:
+                kernels["deterministic"] = _embedding_backward_kernels(engine, batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        _free(engine)
+    (la, ma), (lb, mb) = runs
+    diff = {k: float((mb[k] - w).abs().max()) for k, w in ma.items() if not torch.equal(mb[k], w)}
+    return dict(stage0_twice_equal=la == lb and not diff, losses=[la, lb],
+                params_differing=sorted(diff.items(), key=lambda kv: -kv[1])[:5],
+                embedding_backward_kernels=kernels)
+
+
+def _zero_timed(dt, failures):
+    """Stage 0, offload sequential and offload streamed under the default
+    algorithms, in that order: TRAIN_WARMUP steps, then TRAIN_STEPS timed
+    on the host clock (synchronized)."""
+    out = {}
+    for label, zero in (("stage0", dict(stage=0)), ("sequential", OFFLOAD_SEQUENTIAL),
+                        ("streamed", OFFLOAD_STREAMED)):
+        offload = zero.get("cpu_offload", False)
+        engine, batch = _zero_engine(**zero)
+        losses = [float(engine.train_step([batch])) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dt.kernels.reset_launch_counts()
+        stats, timed = [], []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            timed.append(engine.train_step([batch]))
+            if offload:
+                stats.append(dict(engine.optimizer.last_offload_stats))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, host_counts = dt.kernels.launch_counts(), dt.kernels.host_launch_counts()
+        losses += [float(x) for x in timed]
+        run = out[label] = dict(
+            zero=zero, step_ms=1e3 * wall / TRAIN_STEPS, samples_per_s=FB * TRAIN_STEPS / wall,
+            losses=losses, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k: counts[k] for k in FLASH_KERNELS},
+            cpu_adam_launches=host_counts["cpu_adam"])
+        if offload:
+            run.update(offload_stats_mean={k: statistics.mean(s[k] for s in stats)
+                                           for k in stats[0]},
+                       offload_stats_last=stats[-1])
+        _free(engine)
+        if run["launches"] != {k: v * TRAIN_STEPS for k, v in FLASH_PER_STEP.items()}:
+            failures.append(f"timed {label}: flash launches {run['launches']}")
+        if offload and run["cpu_adam_launches"] <= 0:
+            failures.append(f"offload {label}: the host Adam never launched")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            failures.append(f"timed {label}: losses {losses}")
+        if offload and not run["peak_mem_gb"] < out["stage0"]["peak_mem_gb"]:
+            failures.append(f"offload {label}: peak {run['peak_mem_gb']} GiB not below "
+                            f"stage 0's {out['stage0']['peak_mem_gb']}")
+    out["step_over_stage0"] = {k: out[k]["step_ms"] / out["stage0"]["step_ms"]
+                               for k in ("sequential", "streamed")}
+    return out
+
+
+PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad", "zero")
 
 
 def _report(tag, result):
@@ -1123,6 +1464,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # read by cuBLAS when its first handle is made: fixed workspaces, so that
+    # phase 8's runs under deterministic algorithms are reproducible
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from deepspeed_tpu_torch.kernels import build, registry
@@ -1148,6 +1492,8 @@ def main():
     if "grad" in phases:
         grad_oracle = [_report("grad_oracle", _phase(f"grad {d}", phase_grad_oracle, d))
                        for d in ("fp32", "bf16", "fp16")]
+    if "zero" in phases:
+        zero = _report("zero", _phase("zero", phase_zero))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -1192,13 +1538,24 @@ def main():
                                                    for c in cases]
             if suffix and kind != "fwd":
                 entries[-1]["loss_scaled_overflow"] = flash_overflow["verdicts"]
+    case = zero["cpu_adam"]
+    source, replaces = registry.HOST_KERNEL_SOURCES["cpu_adam"]
+    entries.append(dict(
+        name="cpu_adam", route="cpp", source=source, replaces=replaces,
+        launches=zero["timed"]["streamed"]["cpu_adam_launches"],
+        max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
+        bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"],
+        device="host CPU (g++ -O3 -march=native -fopenmp, OpenMP threads)",
+        main_case=case["case"],
+        library_call="torch._fused_adamw_ on the CPU",
+        contracted_build_ms=case["contracted_build_ms"]))
     card = card_info()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=entries, serve=served, oracle=oracle,
                            flash_cases=flash_cases, flash_overflow=flash_overflow,
                            train=trained, train_fp16=trained_fp16,
-                           grad_oracle=grad_oracle, torch=torch.__version__,
+                           grad_oracle=grad_oracle, zero=zero, torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)
     print(card)                  # name and power limit, as nvidia-smi gives them

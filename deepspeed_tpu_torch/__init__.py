@@ -15,7 +15,10 @@ Ported so far:
   dynamic loss scaling with overflow skips) with fp32 masters,
   Adam/AdamW, LAMB or SGD, the LR schedules, the engine's data loader
   over ``training_data=``, activation checkpointing, on the
-  flash-attention forward, dq and dk/dv kernels with in-kernel dropout.
+  flash-attention forward, dq and dk/dv kernels with in-kernel dropout;
+- data parallelism over ``torch.distributed`` (``init_distributed``) with
+  ZeRO stages 1-3 and ZeRO-Offload (``zero_optimization``), the offload's
+  Adam on the host kernel ``csrc/cpu_adam.cpp``.
 """
 
 from deepspeed_tpu_torch import kernels
@@ -30,6 +33,8 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
 )
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.runtime.zero import zero3_sharded_init
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.version import __version__
 
@@ -55,5 +60,5 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 __all__ = ["BertConfig", "BertForPreTraining", "DeepSpeedConfig", "DeepSpeedConfigError",
            "DeepSpeedEngine", "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
            "GPT2Config", "GPT2LMHeadModel", "ServingConfig", "ServingEngine",
-           "__version__", "generate", "init_bert", "init_gpt2", "initialize", "kernels",
-           "log_dist"]
+           "__version__", "generate", "init_bert", "init_distributed", "init_gpt2",
+           "initialize", "kernels", "log_dist", "zero3_sharded_init"]

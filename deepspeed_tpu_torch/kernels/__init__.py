@@ -14,12 +14,14 @@ kernel's plain PyTorch version. Kernels:
 The training path's three flash-attention kernels (forward, dq, dk/dv)
 live beside their plain versions in
 ``deepspeed_tpu_torch/ops/transformer/attention.py``, where the JAX
-package keeps their Pallas counterparts; they are registered here too.
+package keeps their Pallas counterparts; they are registered here too, and so is the host Adam of ZeRO-Offload
+(``ops/adam/cpu_adam.py``).
 """
 
 from deepspeed_tpu_torch.kernels.registry import (
     KERNEL_BACKENDS,
     KERNEL_NAMES,
+    host_launch_counts,
     kernel_for_backend,
     launch_counts,
     record_launch,
@@ -42,6 +44,7 @@ __all__ = [
     "chunk_attend",
     "chunk_band_attend",
     "decode_attend",
+    "host_launch_counts",
     "kernel_for_backend",
     "launch_counts",
     "record_launch",

@@ -11,6 +11,12 @@ never served by a stale build. A build failure raises: there is no
 fallback. ``-Xptxas -v`` makes ``nvcc`` print each kernel's registers,
 shared memory and spills; what it printed is kept in ``nvcc.log`` beside
 the library.
+
+The host Adam of ZeRO-Offload (``csrc/cpu_adam.cpp``) is a library of its
+own, built by ``build_host`` with ``g++`` (OpenMP, the build machine's
+vector units) and loaded by ``load_host_library``; neither needs ``nvcc``
+or a card. It is named by a hash of its source, its flags and the CPU's
+model and features, and a missing ``g++`` or a refused source raises.
 """
 
 import ctypes
@@ -47,8 +53,24 @@ _SIGNATURES = {
     "ds_flash_bwd_dkv": [_P] * 12 + [_I] * 8 + [_F, _U, _U, _F, _I, _P],
 }
 
+HOST_SOURCE = _CSRC / "cpu_adam.cpp"
+# -fno-math-errno: sqrtf need not set errno, so the loops can vectorize
+# (csrc/cpu_adam.cpp); -ffp-contract=off: no multiply and add fuse
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared", "-fno-math-errno",
+              "-ffp-contract=off")
+_HOST_SIGNATURES = {
+    # param grad exp_avg exp_avg_sq | n | lr beta1 beta2 eps weight_decay |
+    # adamw step bias_correction
+    "ds_adam_step": [_P] * 4 + [ctypes.c_int64] + [_F] * 5 + [_I] * 3,
+    # param param_out grad exp_avg exp_avg_sq | ... as above
+    "ds_adam_step_out": [_P] * 5 + [ctypes.c_int64] + [_F] * 5 + [_I] * 3,
+    # param grad exp_avg exp_avg_sq out_bf16 | ... as above
+    "ds_adam_step_copy_bf16": [_P] * 5 + [ctypes.c_int64] + [_F] * 5 + [_I] * 3,
+}
+
 _lock = threading.Lock()
 _lib = None
+_host_libs = {}
 build_seconds = None
 
 
@@ -139,3 +161,50 @@ def check(rc, name):
     if rc != 0:
         msg = load_library().ds_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} at launch ({msg})")
+
+
+def _cpu_features():
+    """The host CPU's model and feature flags, as the kernel's name must
+    change with them (empty where /proc/cpuinfo is missing)."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return b""
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))][:2]
+    return "\n".join(keep).encode()
+
+
+def build_host(flags=HOST_FLAGS):
+    """Compile the host Adam with ``g++`` (if not already built with these
+    flags) and return the library's path."""
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(" ".join(flags).encode())
+    h.update(_cpu_features())   # -march=native: a build fits only its own CPU
+    lib_path = BUILD_DIR / f"libdstorch_host_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError("g++ not found: the host Adam cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+    out = subprocess.run([gxx, *flags, str(HOST_SOURCE), "-o", str(tmp)],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise KernelBuildError(f"g++ failed:\n{out.stdout}{out.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load_host_library(flags=HOST_FLAGS):
+    """The loaded host Adam library, built at first call. ``ctypes``
+    releases the GIL for the length of each call."""
+    with _lock:
+        if flags not in _host_libs:
+            lib = ctypes.CDLL(str(build_host(flags)))
+            for name, argtypes in _HOST_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = None
+            _host_libs[flags] = lib
+        return _host_libs[flags]

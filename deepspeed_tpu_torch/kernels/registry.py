@@ -8,7 +8,8 @@ plain PyTorch version. What stays is the bookkeeping: which kernel sits
 behind which ``attention_impl`` backend, and a plain per-kernel count of
 launches that each wrapper bumps where it launches its kernel (and
 nowhere else), so a run can show that its main path went through the
-kernels.
+kernels. The host Adam of ZeRO-Offload (``csrc/cpu_adam.cpp``, built with
+``g++``) is counted apart from the CUDA kernels (``host_launch_counts``).
 """
 
 KERNEL_NAMES = ("decode_attention", "sparse_attention", "flash_attention_fwd",
@@ -32,7 +33,13 @@ KERNEL_SOURCES = {
                                 "deepspeed_tpu/ops/transformer/attention.py:246"),
 }
 
+# the host kernel, its source, and the JAX package's host kernel it ports
+HOST_KERNEL_NAMES = ("cpu_adam",)
+HOST_KERNEL_SOURCES = {"cpu_adam": ("deepspeed_tpu_torch/csrc/cpu_adam.cpp",
+                                    "csrc/cpu_adam.cpp:15")}
+
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
+_host_launches = dict.fromkeys(HOST_KERNEL_NAMES, 0)
 
 
 def kernel_for_backend(attn_impl):
@@ -44,16 +51,22 @@ def kernel_for_backend(attn_impl):
 def record_launch(name):
     """Count one launch of ``name`` (called by its wrapper right after
     the launch)."""
-    _launches[name] += 1
+    counts = _host_launches if name in _host_launches else _launches
+    counts[name] += 1
 
 
 def launch_counts():
     return dict(_launches)
 
 
+def host_launch_counts():
+    return dict(_host_launches)
+
+
 def reset_launch_counts():
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _host_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def registry_snapshot():

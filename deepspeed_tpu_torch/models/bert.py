@@ -268,46 +268,52 @@ class BertForQuestionAnswering(nn.Module):
                                   "(ROADMAP.md, queue 1)")
 
 
+def bert_init_plan(model, gen):
+    """``(parameter, fill)`` for every parameter of a ``BertForPreTraining``
+    in ``init_bert``'s draw order: ``fill(t)`` writes the parameter's initial
+    fp32 value into ``t``, drawing from ``gen`` (embeddings and the layers'
+    Dense kernels normal(0, initializer_range); the pooler, MLM transform
+    and NSP head kernels lecun-normal, a normal truncated at two deviations
+    scaled to variance 1/fan_in; biases zero; LayerNorm scales one)."""
+    config = model.config
+    std = config.initializer_range if config.initializer_range > 0 else 0.02
+
+    def normal(t):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * std)
+
+    def lecun(t):
+        s = math.sqrt(1.0 / t.shape[1]) / 0.87962566103423978
+        nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=gen)
+
+    zero = lambda t: t.zero_()
+    one = lambda t: t.fill_(1.0)
+    plan = []
+    e = model.bert.embeddings
+    for table in (e.word_embeddings, e.position_embeddings, e.token_type_embeddings):
+        plan.append((table.weight, normal))
+    plan += [(e.LayerNorm.weight, one), (e.LayerNorm.bias, zero)]
+    for layer in model.bert.encoder.layers:
+        for name in _LINEARS:
+            plan += [(getattr(layer, name).weight, normal), (getattr(layer, name).bias, zero)]
+        for name in _NORMS:
+            plan += [(getattr(layer, name).weight, one), (getattr(layer, name).bias, zero)]
+    for lin in (model.bert.pooler, model.mlm_transform, model.nsp_head):
+        plan += [(lin.weight, lecun), (lin.bias, zero)]
+    plan += [(model.mlm_ln.weight, one), (model.mlm_ln.bias, zero), (model.mlm_bias, zero)]
+    return plan
+
+
 def init_bert(config, seed=0, device="cuda", dtype=torch.float32):
     """A ``BertForPreTraining`` with random weights, initialized as flax
-    does: embeddings and the layers' Dense kernels normal(0,
-    initializer_range); the pooler, MLM transform and NSP head kernels
-    lecun-normal (a normal truncated at two deviations, scaled to
-    variance 1/fan_in); biases zero; LayerNorm scales one. Weights are
-    drawn in fp32 from an explicit ``torch.Generator`` on ``device``
-    seeded with ``seed``, then cast to ``dtype``."""
+    does (``bert_init_plan``). Weights are drawn in fp32 from an explicit
+    ``torch.Generator`` on ``device`` seeded with ``seed``, then cast to
+    ``dtype``."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = BertForPreTraining(config)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    std = config.initializer_range if config.initializer_range > 0 else 0.02
-
-    def normal(w):
-        w.copy_(torch.randn(w.shape, generator=gen, device=device) * std)
-
-    def lecun(lin):
-        s = math.sqrt(1.0 / lin.weight.shape[1]) / 0.87962566103423978
-        nn.init.trunc_normal_(lin.weight, std=s, a=-2 * s, b=2 * s, generator=gen)
-        lin.bias.zero_()
-
-    def ones(ln):
-        ln.weight.fill_(1.0)
-        ln.bias.zero_()
-
     with torch.no_grad():
-        e = model.bert.embeddings
-        for table in (e.word_embeddings, e.position_embeddings, e.token_type_embeddings):
-            normal(table.weight)
-        ones(e.LayerNorm)
-        for layer in model.bert.encoder.layers:
-            for name in _LINEARS:
-                normal(getattr(layer, name).weight)
-                getattr(layer, name).bias.zero_()
-            for name in _NORMS:
-                ones(getattr(layer, name))
-        for lin in (model.bert.pooler, model.mlm_transform, model.nsp_head):
-            lecun(lin)
-        ones(model.mlm_ln)
-        model.mlm_bias.zero_()
+        for param, fill in bert_init_plan(model, gen):
+            fill(param)
     return model.to(dtype)

@@ -7,6 +7,12 @@ package leaves this elementwise math and the two norms of each tensor to
 XLA's fusion; the port runs it as ``torch._foreach_*`` passes over the
 tensor list, the norms from ``torch._foreach_norm``, all on the device and
 in place, with no host read.
+
+Under ZeRO the JAX package runs LAMB over the flat fp32 master, so one
+trust ratio covers every parameter (``jnp.sum`` over a sharded array is
+global). ``update(..., sum_sq=fn)`` does that: the two squared norms are
+summed over every tensor of the list and then by ``fn`` over the ranks,
+and one clamped ratio scales every tensor's step.
 """
 
 from dataclasses import dataclass, field
@@ -47,9 +53,11 @@ class FusedLamb:
         zeros = lambda: [torch.zeros_like(p, dtype=torch.float32) for p in params]
         return LambState(step=0, exp_avg=zeros(), exp_avg_sq=zeros())
 
-    def update(self, grads, state, params, lr=None, names=None):
-        """One step on fp32 ``params`` (updated in place) from ``grads``.
-        Returns (params, state)."""
+    def update(self, grads, state, params, lr=None, names=None, sum_sq=None):
+        """One step on fp32 ``params`` (updated in place) from ``grads``;
+        with ``sum_sq`` (a function summing a tensor of squared norms over
+        the ranks) one trust ratio over all of them. Returns (params,
+        state)."""
         lr = self.lr if lr is None else float(lr)
         beta1, beta2 = self.betas
         state.step += 1
@@ -78,6 +86,11 @@ class FusedLamb:
         # the trust ratio of each tensor, clamped, 1 where a norm is 0
         w_norm = torch.stack(torch._foreach_norm(params))
         u_norm = torch.stack(torch._foreach_norm(update))
+        if sum_sq is not None:   # one ratio over the flat master
+            sq = sum_sq(torch.stack([w_norm.square().sum(), u_norm.square().sum()]))
+            w_norm, u_norm = sq.sqrt().unbind()
+            w_norm = w_norm.expand(len(params))
+            u_norm = u_norm.expand(len(params))
         trust = torch.where((w_norm > 0) & (u_norm > 0),
                             torch.clamp(w_norm / u_norm, self.min_coeff, self.max_coeff),
                             torch.ones_like(w_norm))

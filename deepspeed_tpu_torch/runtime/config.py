@@ -9,11 +9,13 @@ are refused. ``world_size`` is the data-parallel world size: the
 
 Honoured sections: ``optimizer`` (Adam, AdamW, Lamb, SGD), ``scheduler``
 (name and params), ``fp16`` (static or dynamic loss scaling) and
-``bf16``, ``gradient_clipping``, ``zero_optimization.stage`` 0,
-``activation_checkpointing``, ``steps_per_print``, ``seed``,
-``prescale_gradients`` and ``gradient_predivide_factor``. A config that
-enables a section or a switch the port does not run yet raises
-``NotImplementedError`` naming it; nothing is silently ignored.
+``bf16``, ``gradient_clipping``, ``zero_optimization`` (stages 0-3 and
+``cpu_offload``, with the JAX package's checks of its keys) and
+``zero_allow_untested_optimizer``, ``activation_checkpointing``,
+``steps_per_print``, ``seed``, ``prescale_gradients`` and
+``gradient_predivide_factor``. A config that enables a section or a
+switch the port does not run yet raises ``NotImplementedError`` naming
+it; nothing is silently ignored.
 """
 
 import json
@@ -66,6 +68,8 @@ from deepspeed_tpu_torch.runtime.constants import (
     TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     TYPE,
     UNPORTED_SECTIONS,
+    ZERO_ALLOW_UNTESTED_OPTIMIZER,
+    ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT,
 )
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.runtime.zero.constants import (
@@ -211,6 +215,8 @@ class DeepSpeedConfig:
         self.gradient_predivide_factor = get_scalar_param(
             param_dict, GRADIENT_PREDIVIDE_FACTOR, GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
 
+        self.zero_allow_untested_optimizer = get_scalar_param(
+            param_dict, ZERO_ALLOW_UNTESTED_OPTIMIZER, ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
         self.zero_config = DeepSpeedZeroConfig(param_dict)
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > ZERO_OPTIMIZATION_DISABLED
@@ -279,16 +285,34 @@ class DeepSpeedConfig:
         if self.zero_enabled:
             assert self.zero_optimization_stage <= MAX_STAGE_ZERO_OPTIMIZATION, (
                 f"DeepSpeedConfig: Maximum supported ZeRO stage is {MAX_STAGE_ZERO_OPTIMIZATION}")
+            zc = self.zero_config
+            for knob in ("reduce_bucket_size", "allgather_bucket_size"):
+                val = getattr(zc, knob)
+                if not isinstance(val, (int, float)) or isinstance(val, bool) or val <= 0:
+                    raise DeepSpeedConfigError(
+                        f"DeepSpeedConfig: zero_optimization.{knob} must be a "
+                        f"positive number of elements, got {val!r}")
+            if not isinstance(zc.overlap_comm, bool):
+                raise DeepSpeedConfigError("DeepSpeedConfig: zero_optimization.overlap_comm "
+                                           f"must be a boolean, got {zc.overlap_comm!r}")
+            k = zc.offload_stream_buckets
+            if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+                raise DeepSpeedConfigError(
+                    "DeepSpeedConfig: zero_optimization.offload_stream_buckets "
+                    f"must be an integer >= 1, got {k!r}")
+            if not isinstance(zc.offload_pin_host, bool):
+                raise DeepSpeedConfigError(
+                    "DeepSpeedConfig: zero_optimization.offload_pin_host must "
+                    f"be a boolean, got {zc.offload_pin_host!r}")
+            if k > 1 and not zc.cpu_offload:
+                raise DeepSpeedConfigError(
+                    "DeepSpeedConfig: zero_optimization.offload_stream_buckets "
+                    f"> 1 requires cpu_offload: true (got {k} without offload)")
 
     def _check_ported(self, param_dict):
         """Refuse, by name, every enabled section this slice does not run."""
-        todo = []
-        if self.zero_enabled:
-            todo.append(f"zero_optimization stage {self.zero_optimization_stage}")
-        if self.zero_config.cpu_offload:
-            todo.append("zero_optimization.cpu_offload")
-        todo += [f"activation_checkpointing.{k}"
-                 for k in self.activation_checkpointing_config.unported]
+        todo = [f"activation_checkpointing.{k}"
+                for k in self.activation_checkpointing_config.unported]
         if self.optimizer_name is not None and self.optimizer_name in DEEPSPEED_OPTIMIZERS \
                 and self.optimizer_name not in PORTED_OPTIMIZERS:
             todo.append(f"optimizer {self.optimizer_name}")

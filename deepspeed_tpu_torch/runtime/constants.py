@@ -5,6 +5,9 @@ TRAIN_BATCH_SIZE = "train_batch_size"
 TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
 GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+
 OPTIMIZER = "optimizer"
 OPTIMIZER_PARAMS = "params"
 TYPE = "type"

@@ -1,8 +1,8 @@
-"""DeepSpeedEngine: training of a PyTorch module on one card.
+"""DeepSpeedEngine: data-parallel training of a PyTorch module.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` for the path
 ``initialize()`` -> ``train_step`` / ``train_batch`` (and the three-call
-``forward`` / ``backward`` / ``step``), single process, ZeRO stage 0:
+``forward`` / ``backward`` / ``step``), one process a card:
 
 - mixed precision as the JAX engine does it: the engine holds fp32
   master parameters and fp32 optimizer state, and the module's weights
@@ -27,7 +27,15 @@ Port of ``deepspeed_tpu/runtime/engine.py`` for the path
   ``checkpoint_activations`` (per-layer recompute) or, for a model
   without that switch, recomputes the whole forward;
 - one explicit step ``torch.Generator`` seeded from the config ``seed``
-  (default 42) hands every microbatch one integer dropout seed.
+  (default 42) hands every microbatch one integer dropout seed;
+- ``initialize`` starts the ``torch.distributed`` group from the
+  launcher's environment (``utils/distributed.py``); at ZeRO stage 0 with
+  more than one rank the accumulated gradients are all-reduced to their
+  mean before the update;
+- ZeRO stages 1-3 and ZeRO-Offload through ``runtime/zero``
+  (``ZeroShardedOptimizer``): the fp16 overflow verdict and the gradient
+  norm are then reduced over the ranks (MAX, and a SUM of squares), and
+  under ``cpu_offload`` Adam runs on the host (``DeepSpeedCPUAdam``).
 """
 
 import inspect
@@ -35,7 +43,9 @@ import inspect
 import torch
 
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
+from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.utils_op import flatten_dense_tensors, unflatten_dense_tensors
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.ops.sgd import SGD
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
@@ -56,15 +66,63 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
 )
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, has_overflow
+from deepspeed_tpu_torch.runtime.zero.sharded_optimizer import ZeroShardedOptimizer
 from deepspeed_tpu_torch.utils import distributed as dist
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
 ROUTE_TRAIN = "train"
+ZERO_SUPPORTED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER]
+
+
+class ReplicatedOptimizer:
+    """ZeRO stage 0's side of the engine's step, with the ZeRO optimizer's
+    interface: every rank holds the whole fp32 master and optimizer state.
+    The accumulated gradients become their mean over the ranks (one
+    all-reduce of their flat concatenation, skipped at world 1), the inner
+    optimizer steps the master a tensor at a time, and the master is cast
+    into the module's compute-dtype parameters."""
+
+    def __init__(self, inner, master, params, names, compute_dtype):
+        self.inner = inner
+        self.master = master
+        self.params = params
+        self.names = names
+        self.cast = compute_dtype != torch.float32
+        self.state = None
+        self.world = dist.group_rank_and_size()[1]
+        self.acc_grads = [torch.zeros_like(m) for m in master]
+
+    def reduce_gradients(self):
+        if self.world > 1:
+            flat = flatten_dense_tensors(self.acc_grads)
+            torch.distributed.all_reduce(flat)
+            flat.div_(self.world)
+            torch._foreach_copy_(self.acc_grads, unflatten_dense_tensors(
+                flat, [tuple(g.shape) for g in self.acc_grads]))
+        return self.acc_grads
+
+    def has_overflow(self, grads):
+        return has_overflow(grads)    # the reduced gradients are alike on every rank
+
+    def global_norm(self, grads):
+        return global_norm(grads)
+
+    def update(self, grads, lr=None):
+        with torch.no_grad():
+            if self.state is None:
+                self.state = self.inner.init(self.master)
+            self.inner.update(grads, self.state, self.master, lr=lr, names=self.names)
+            if self.cast:
+                torch._foreach_copy_([p.data for p in self.params], self.master)
+
+    def zero_grad(self):
+        with torch.no_grad():
+            torch._foreach_zero_(self.acc_grads)
 
 
 class DeepSpeedEngine:
-    """Wraps a module for mixed-precision training on one card."""
+    """Wraps a module for mixed-precision, data-parallel training."""
 
     def __init__(self, args=None, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, mpu=None,
@@ -82,8 +140,11 @@ class DeepSpeedEngine:
             config = config_params
         assert config is not None, "DeepSpeed requires a config (config= or config_params=)"
 
+        if dist_init_required is None or dist_init_required:
+            dist.init_distributed(verbose=False, device_type=torch.device(device).type)
         self.device = resolve_device(device)
         self._config = DeepSpeedConfig(config)
+        self.client_optimizer = optimizer
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -109,14 +170,26 @@ class DeepSpeedEngine:
             named = [(n, p) for n, p in named if id(p) in chosen]
         self._param_names = [n for n, _ in named]
         self._params = [p for _, p in named]
-        if self.compute_dtype == torch.float32:
+        self._zero3 = self.zero_optimization() and self.zero_optimization_stage() >= 3
+        if self.zero_optimization():
+            # the ZeRO optimizer takes the fp32 values as its master and
+            # rebinds the parameters to its flat compute-dtype buffer
+            for p in self._params:
+                p.data = p.data.float()
+            self._master = None
+            chosen = {id(p) for p in self._params}
+            for t in [p for p in self.module.parameters() if id(p) not in chosen] + \
+                    list(self.module.buffers()):
+                if t.is_floating_point():
+                    t.data = t.data.to(self.compute_dtype)
+        elif self.compute_dtype == torch.float32:
             for p in self._params:
                 p.data = p.data.float()
             self._master = [p.data for p in self._params]   # updated in place
         else:
             self._master = [p.detach().float().clone() for p in self._params]
             self.module.to(self.compute_dtype)
-        self._acc_grads = None
+        self._grads_in_hooks = False
 
         self._configure_activation_checkpointing()
 
@@ -127,9 +200,7 @@ class DeepSpeedEngine:
         self.training_dataloader = (self.deepspeed_io(training_data)
                                     if training_data is not None else None)
 
-        self.optimizer = optimizer if optimizer is not None else self._configure_basic_optimizer()
-        self.basic_optimizer = self.optimizer
-        self.opt_state = None
+        self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
         self._configure_loss_scaler()
         self._step_gen = torch.Generator().manual_seed(int(self._config.seed))
@@ -194,6 +265,39 @@ class DeepSpeedEngine:
     def optimizer_name(self):
         return self._config.optimizer_name
 
+    def zero_optimization(self):
+        return self._config.zero_enabled
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization_stage
+
+    def zero_cpu_offload(self):
+        return self._config.zero_config.cpu_offload
+
+    def zero_offload_stream_buckets(self):
+        return self._config.zero_config.offload_stream_buckets
+
+    def zero_offload_pin_host(self):
+        return self._config.zero_config.offload_pin_host
+
+    def zero_reduce_bucket_size(self):
+        return self._config.zero_config.reduce_bucket_size
+
+    def zero_allgather_bucket_size(self):
+        return self._config.zero_config.allgather_bucket_size
+
+    def zero_overlap_comm(self):
+        return self._config.zero_config.overlap_comm
+
+    def zero_reduce_scatter(self):
+        return self._config.zero_config.reduce_scatter
+
+    def zero_contiguous_gradients(self):
+        return self._config.zero_config.contiguous_gradients
+
+    def zero_elastic_checkpoint(self):
+        return self._config.zero_config.elastic_checkpoint
+
     def optimizer_params(self):
         return self._config.optimizer_params
 
@@ -202,6 +306,60 @@ class DeepSpeedEngine:
 
     def eval(self):
         self.training = False
+
+    def _configure_optimizer(self, client_optimizer):
+        """The optimizer from the config (or ``optimizer=``), wrapped in the
+        ZeRO optimizer at stages 1-3, which then lays out the parameters."""
+        if client_optimizer is not None:
+            basic_optimizer = client_optimizer
+            log_dist("Using client Optimizer as basic optimizer", ranks=[0])
+        else:
+            basic_optimizer = self._configure_basic_optimizer()
+            log_dist(f"Using DeepSpeed Optimizer param name {self.optimizer_name()} as "
+                     "basic optimizer", ranks=[0])
+        self.basic_optimizer = basic_optimizer
+        if not self.zero_optimization():
+            self.optimizer = basic_optimizer
+            self._step_optimizer = ReplicatedOptimizer(
+                basic_optimizer, self._master, self._params, self._param_names,
+                self.compute_dtype)
+            self._acc_grads = self._step_optimizer.acc_grads
+            return
+        if self.optimizer_name() is not None and \
+                not self._is_supported_optimizer(self.optimizer_name()):
+            assert self._config.zero_allow_untested_optimizer, (
+                "You are using an untested ZeRO Optimizer. Please add "
+                '"zero_allow_untested_optimizer": true in the DeepSpeed JSON config.')
+            logger.warning("**** You are using ZeRO with an untested optimizer, proceeding "
+                           "with caution ****")
+        self.optimizer = self._step_optimizer = self._configure_zero_optimizer(basic_optimizer)
+
+    def _is_supported_optimizer(self, name):
+        return (name or "").lower() in ZERO_SUPPORTED_OPTIMIZERS or (
+            self.client_optimizer is not None
+            and getattr(self.client_optimizer, "name", "") in ZERO_SUPPORTED_OPTIMIZERS)
+
+    def _configure_zero_optimizer(self, basic_optimizer):
+        stage = self.zero_optimization_stage()
+        if self.zero_contiguous_gradients():
+            log_dist("ZeRO: 'contiguous_gradients'=True is accepted for parity but is a "
+                     "NO-OP: the gradients always accumulate into one flat buffer",
+                     ranks=[0])
+        log_dist(f"Creating ZeRO stage {stage} optimizer", ranks=[0])
+        zero = ZeroShardedOptimizer(
+            basic_optimizer, stage=stage, cpu_offload=self.zero_cpu_offload(),
+            reduce_scatter=self.zero_reduce_scatter(),
+            reduce_bucket_size=self.zero_reduce_bucket_size(),
+            allgather_bucket_size=self.zero_allgather_bucket_size(),
+            overlap_comm=self.zero_overlap_comm(),
+            offload_stream_buckets=self.zero_offload_stream_buckets(),
+            offload_pin_host=self.zero_offload_pin_host(),
+            compute_dtype=self.compute_dtype,
+            gradient_accumulation_steps=self.gradient_accumulation_steps())
+        zero.init(self._params, self._param_names)
+        self._acc_grads = zero.acc_grads
+        self._grads_in_hooks = zero.register_overlap_hooks(self._accumulation_factor())
+        return zero
 
     def _configure_basic_optimizer(self):
         name = self.optimizer_name()
@@ -212,6 +370,8 @@ class DeepSpeedEngine:
                              "optimizer instance was passed")
         name = name.lower()
         if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+            if self.zero_cpu_offload():
+                return DeepSpeedCPUAdam(adam_w_mode=(name == ADAMW_OPTIMIZER), **params)
             return FusedAdam(adam_w_mode=(name == ADAMW_OPTIMIZER), **params)
         if name == LAMB_OPTIMIZER:
             return FusedLamb(**params)
@@ -302,6 +462,8 @@ class DeepSpeedEngine:
     def _loss(self, batch, deterministic=False):
         """The module's scalar fp32 loss on ``batch``; a training forward
         hands the module this microbatch's dropout seed."""
+        if self._zero3:
+            self.optimizer.gather_params()
         kwargs = {}
         if deterministic:
             if "deterministic" in inspect.signature(self.module.forward).parameters:
@@ -322,52 +484,52 @@ class DeepSpeedEngine:
         return 1.0 / (gas * self.gradient_predivide_factor())
 
     def _accumulate(self):
-        """acc += grad * factor in fp32, then drop the module's grads."""
-        if self._acc_grads is None:
-            self._acc_grads = [torch.zeros_like(m) for m in self._master]
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(m)
-                 for p, m in zip(self._params, self._master)]
+        """acc += grad * factor in fp32, then drop the module's grads (done
+        in the backward's gradient hooks under ZeRO's ``overlap_comm``)."""
+        if self._grads_in_hooks:
+            return
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(a)
+                 for p, a in zip(self._params, self._acc_grads)]
         torch._foreach_add_(self._acc_grads, grads, alpha=self._accumulation_factor())
         for p in self._params:
             p.grad = None
-
-    def _ensure_opt_state(self):
-        if self.opt_state is None:
-            self.opt_state = self.optimizer.init(self._master)
 
     def _scaled(self, loss):
         """The loss to backpropagate: times the loss scale under fp16."""
         return loss * self.scaler_state.cur_scale if self.fp16_enabled() else loss
 
+    def allreduce_gradients(self):
+        """The accumulated gradients reduced over the ranks, as the views
+        the step optimizer updates from: at stage 0 their mean, all-reduced
+        (a no-op at world 1); under ZeRO the part of the mean this rank
+        steps (``ZeroShardedOptimizer.reduce_gradients``)."""
+        return self._step_optimizer.reduce_gradients()
+
     def _update(self):
-        """Under fp16, check the accumulated gradients for overflow (the one
-        host read of the step) and skip an overflowing step; otherwise
-        unscale, clip (or just measure), step the optimizer on the fp32
-        masters at the schedule's LR and cast the masters into the module.
-        Then advance the loss scaler and zero the accumulators. Returns the
+        """The one step sequence of every ZeRO stage: reduce the
+        accumulated gradients over the ranks, then under fp16 check them
+        for overflow (the one host read of the step; MAX over the ranks)
+        and skip an overflowing step; otherwise unscale, take the norm (its
+        squares summed over the ranks) and clip, and step the optimizer at
+        the schedule's LR, which casts the masters into the module. Then
+        advance the loss scaler and zero the accumulators. Returns the
         overflow verdict as a host bool."""
-        self._ensure_opt_state()
-        grads = self._acc_grads
-        overflow = self.fp16_enabled() and bool(has_overflow(grads))
+        opt = self._step_optimizer
+        grads = self.allreduce_gradients()
+        overflow = self.fp16_enabled() and bool(opt.has_overflow(grads))
         if overflow:
             gnorm = torch.tensor(-1.0, device=self.device)
         else:
             if self.fp16_enabled():
                 torch._foreach_div_(grads, self.scaler_state.cur_scale)
+            gnorm = opt.global_norm(grads)
             clip = self.gradient_clipping()
             if clip > 0:
-                gnorm = clip_grad_norm_(grads, clip)
-            else:
-                gnorm = global_norm(grads)
-            with torch.no_grad():
-                self.optimizer.update(grads, self.opt_state, self._master,
-                                      lr=self.get_lr()[0], names=self._param_names)
-                if self.compute_dtype != torch.float32:
-                    torch._foreach_copy_([p.data for p in self._params], self._master)
+                clip_grad_norm_(grads, clip, global_grad_norm=gnorm)
+            opt.update(grads, lr=self.get_lr()[0])
         self.scaler_state = advance_scaler(self.scaler_state, overflow,
                                            self.dynamic_loss_scale(), self._scaler_kwargs)
-        with torch.no_grad():
-            torch._foreach_zero_(self._acc_grads)
+        opt.zero_grad()
         self.last_grad_norm = gnorm
         return overflow
 
@@ -436,8 +598,7 @@ class DeepSpeedEngine:
 
     def step(self):
         """Apply the accumulated gradients at an accumulation boundary."""
-        if self.is_gradient_accumulation_boundary() and self.micro_steps > 0 \
-                and self._acc_grads is not None:
+        if self.is_gradient_accumulation_boundary() and self.micro_steps > 0:
             self._finish_step_bookkeeping(self._update())
             self.tput_timer.stop(self.global_steps % self.steps_per_print() == 0)
 
@@ -481,6 +642,9 @@ class DeepSpeedEngine:
         return float(self.train_step(micro))
 
     def master_params(self):
-        """Named fp32 master parameters (the optimizer's view)."""
+        """Named fp32 master parameters (the optimizer's view; under ZeRO
+        gathered whole from every rank's slice, or from the host)."""
+        if self.zero_optimization():
+            return dict(zip(self._param_names, self.optimizer.master_params()))
         return dict(zip(self._param_names, self._master))
 

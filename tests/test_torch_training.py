@@ -284,8 +284,8 @@ def test_config_errors_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("section", [
-    {"zero_optimization": {"stage": 2}},
-    {"zero_optimization": {"stage": 0, "cpu_offload": True}},
+    {"elasticity": {"enabled": True}},
+    {"curriculum_learning": {"enabled": True}},
     {"optimizer": {"type": "OneBitAdam"}}, {"progressive_layer_drop": {"enabled": True}},
     {"pipeline": {"stages": 2}}, {"sparse_attention": {"mode": "fixed"}},
     {"telemetry": {"enabled": True}}, {"resilience": {}},
