@@ -54,8 +54,9 @@ prints no result line):
    CPU at BERT-large's 336,232,258 elements, and time it beside its plain
    version, ``torch._fused_adamw_`` and its bound (28 bytes an element
    at the fastest of four host memory streams); start NCCL at world 1
-   and train phase 6's bf16 Adam BERT-large 3 steps at ZeRO stages 0, 0
-   again, 1, 2 and 3 and ZeRO-2 + ``cpu_offload`` sequential and
+   and train phase 6's bf16 Adam BERT-large (6 of its 24 layers) 3 steps
+   at ZeRO stages 0, 0 again, 1, 2 and 3 and ZeRO-2 + ``cpu_offload``
+   sequential and
    streamed (4 buckets) under deterministic algorithms: each stage's
    losses and final masters must equal stage 0's, and streamed
    sequential's, bit for bit; then, under the default algorithms,
@@ -65,14 +66,15 @@ prints no result line):
    times a step; last, report whether stage 0 run twice under the
    default algorithms agrees with itself, and which embedding-backward
    kernels each mode launches;
-9. (``ckpt``) checkpoint and resume at BERT-large full width, phase 6's
+9. (``ckpt``) checkpoint and resume at BERT-large's width and 6 of its
+   24 layers, phase 6's
    bf16 Adam, under deterministic algorithms, at ZeRO stage 0 (with the
    ``telemetry`` block armed), ZeRO-2 + ``cpu_offload`` streamed (4
    buckets) and ZeRO-3 through NCCL at world 1: train 3 steps, save, train
    3 more; a fresh engine from init seed 99 loads the tag and trains the
    same 3 steps, whose losses and final fp32 masters must equal the
    uninterrupted run's (``torch.equal``) while the flash kernels launch
-   48/24/24 times a step; ``zero_to_fp32`` of the offload tag must equal
+   12/6/6 times a step; ``zero_to_fp32`` of the offload tag must equal
    the masters at the save; the stage-0 trace must hold
    ``train/checkpoint_save``, ``checkpoint/commit`` and the step spans
    (written to ``build/ckpt_trace.json``). Tags go to a temporary
@@ -81,15 +83,16 @@ prints no result line):
    seconds and GB/s, the save's D2H, serialization, digest and write
    seconds, the free space and host RAM, and (report only) the bf16 step
    with telemetry armed and disarmed, in turns;
-10. (``resil``) resilience at BERT-large full width and depth, phase 6's
-   bf16 Adam at ZeRO 0 under deterministic algorithms, NCCL at world 1:
+10. (``resil``) resilience at BERT-large's width and 6 of its 24 layers,
+   phase 6's bf16 Adam at ZeRO 0 under deterministic algorithms, NCCL at
+   world 1:
    a. in process: a clean run of 6 steps over 6 seeded batches, then the
       same with a ``resilience`` block (divergence check, 2 recoveries, a
       60 s step watchdog, so every step after the first runs on the
       watchdog's thread) and a NaN loss injected at step 4 after a save at
       step 2: one recovery, and the 6 losses and the final masters
       ``torch.equal`` to the clean run's; the flash kernels launch
-      48/24/24 on every step that runs, the failing one and the replays
+      12/6/6 on every step that runs, the failing one and the replays
       included. Report only: under the default algorithms, two replays
       from the same loaded tag, and their masters' largest difference;
    b. through the launcher: ``python -m deepspeed_tpu_torch.launcher.runner
@@ -138,8 +141,8 @@ prints no result line):
    as ``generate()`` serves it, a corrupted blob is dropped and the prompt
    prefilled, the ``host_mem_pressure`` arm climbs the guard to its top
    level; d. beam search, W = 1 equal to greedy ``generate()`` and W = 4
-   timed; b. in bf16, timed: k = 0, k = 4, chunks of 256 and the prefix
-   cache, each pass's TTFT p50/p95, decode tokens/s, tokens a step,
+   timed; b. in bf16, timed at 12 of the 48 layers: k = 0, k = 4, chunks
+   of 256 and the prefix cache, each pass's TTFT p50/p95, decode tokens/s, tokens a step,
    accept rate, prefix hit rate and reused tokens, and the kernels'
    launches; the int8 weights' bytes against bf16's. The phase-2 cases
    add the decode kernel at C = 5 (fp32, bf16, int8) and C = 256, the band
@@ -147,24 +150,49 @@ prints no result line):
    rows (``torch.equal``, required in fp32), and phase 5 the three flash
    kernels at S = 384, batch 24, in bf16 and fp16.
 
+13. (``fleet``) the serving fleet at GPT-2 XL width: replica processes of
+   the port (``python -m deepspeed_tpu_torch.inference.serving.replica``,
+   phase 3's engine, weights from seed 0 on a CPU generator) behind a
+   ``Router``, each with its engine endpoint armed: a. a prefill and a
+   decode replica in fp32 with the KV handoff, served tokens against
+   ``generate()`` under phase 4's margin rule, the hand-offs all
+   completed, the parameters' SHA-256 of both replicas equal to the
+   oracle's, and a ``FleetCollector`` over both endpoints (the decode and
+   band kernels launched in the prefill replica, the decode kernel in the
+   decode replica); b. a prefill and a decode replica in bf16, timed: per
+   request the bytes handed off, the export, send and install ms against
+   the prompt's re-prefill on the decode replica, TTFT p50 / p95 and the
+   decode replica's tokens/s; c. SIGTERM to that decode replica with
+   every lane decoding: its requests finish without a re-route, it exits
+   ``EXIT_PREEMPTED``, and later requests go to the other replica; d. two
+   mixed fp32 replicas, one killed by its ``kill_replica`` arm
+   mid-decode: every request equal to ``generate()``, streamed without a
+   duplicate or a lost token, the longest pause in a stream reported as
+   the failover time. Replica specs and logs go to a temporary directory
+   under ``build/``.
+
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad,
-zero, ckpt, resil, pld, serve6) while a kernel is being worked on; such a
-run prints no result line.
+zero, ckpt, resil, pld, serve6, fleet) while a kernel is being worked on;
+such a run prints no result line.
 
 The line before the last is the kernels' JSON, with the card's name and
 power limit printed before it; the last line is the run's JSON result.
 """
 
 import argparse
+import gc
 import hashlib
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -1108,6 +1136,9 @@ class _PlainAttention:
 # phase 8: ZeRO and ZeRO-Offload at BERT-large width (the bf16 Adam run of
 # phase 6 with only zero_optimization changed)
 ZERO_STEPS = 3
+# the bit-for-bit runs' depth (BERT-large's width): equality does not
+# depend on depth, and the script must end inside its time limit
+ZERO_EQUAL_LAYERS = 6
 OFFLOAD_BUCKETS = 4                         # the streamed run; 1 is sequential
 CPU_ADAM_N = 336_232_258                    # BERT-large's parameters
 CPU_ADAM_BYTES = 28                         # read p, g, m, v; write p, m, v (fp32)
@@ -1315,7 +1346,7 @@ def _zero_equalities(failures):
                         ("stage1", dict(stage=1)), ("stage2", dict(stage=2)),
                         ("stage3", dict(stage=3)), ("offload_sequential", OFFLOAD_SEQUENTIAL),
                         ("offload_streamed", OFFLOAD_STREAMED)):
-        engine, batch = _zero_engine(**zero)
+        engine, batch = _zero_engine(layers=ZERO_EQUAL_LAYERS, **zero)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses = [float(engine.train_step([batch])) for _ in range(ZERO_STEPS)]
@@ -1366,7 +1397,7 @@ def _default_algorithms_probe():
     backward's kernels in a step under each mode."""
     runs, kernels = [], {}
     for _ in range(2):
-        engine, batch = _zero_engine(stage=0)
+        engine, batch = _zero_engine(layers=ZERO_EQUAL_LAYERS, stage=0)
         losses = [float(engine.train_step([batch])) for _ in range(ZERO_STEPS)]
         runs.append((losses, _host_masters(engine)))
         if len(runs) == 2:
@@ -1432,6 +1463,9 @@ def _zero_timed(dt, failures):
 
 
 CKPT_STEPS = 3
+# the runs' depth (BERT-large's width): 6 of 24 layers keep the three tags
+# and their saves and loads inside the script's time limit beside phase 13
+CKPT_LAYERS = 6
 CKPT_RUNS = (("stage0", dict(stage=0)), ("offload_streamed", OFFLOAD_STREAMED),
              ("stage3", dict(stage=3)))
 CKPT_SPACE_FACTOR = 2.5        # free space needed, in tags of the largest size
@@ -1511,7 +1545,7 @@ def _ckpt_run(label, zero, root, failures, dt):
 
     armed = label == "stage0"
     extra = {"telemetry": {"enabled": True, "trace_max_events": 1 << 16}} if armed else None
-    engine, batch = _zero_engine(extra=extra, **zero)
+    engine, batch = _zero_engine(extra=extra, layers=CKPT_LAYERS, **zero)
     [engine.train_step([batch]) for _ in range(CKPT_STEPS)]
     torch.cuda.synchronize()
     with _CallTimes(_ckpt_call_targets()) as save_times:
@@ -1539,7 +1573,7 @@ def _ckpt_run(label, zero, root, failures, dt):
             failures.append(f"ckpt {label}: zero_to_fp32 differs from the masters at the "
                             f"save in {len(differ)} parameters, e.g. {differ[:3]}")
         del sd, at_save
-    resumed, batch = _zero_engine(seed=99, **zero)
+    resumed, batch = _zero_engine(seed=99, layers=CKPT_LAYERS, **zero)
     torch.cuda.synchronize()
     with _CallTimes(_ckpt_call_targets()) as load_times:
         t0 = time.perf_counter()
@@ -1564,7 +1598,8 @@ def _ckpt_run(label, zero, root, failures, dt):
     if not run["equal"]:
         failures.append(f"ckpt {label}: the resumed run differs: losses {got} against "
                         f"{want}, {len(diff)} masters differ, {run['worst_param_diffs']}")
-    if run["launches"] != {k: v * CKPT_STEPS for k, v in FLASH_PER_STEP.items()}:
+    if run["launches"] != {k: v * CKPT_LAYERS // 24 * CKPT_STEPS
+                           for k, v in FLASH_PER_STEP.items()}:
         failures.append(f"ckpt {label}: flash launches {run['launches']} in "
                         f"{CKPT_STEPS} resumed steps")
     if armed:
@@ -1614,8 +1649,11 @@ def phase_ckpt():
 
     import deepspeed_tpu_torch as dt
 
-    n = CPU_ADAM_N
+    with torch.device("meta"):
+        n = sum(p.numel() for p in dt.BertForPreTraining(dt.BertConfig.bert_large(
+            num_hidden_layers=CKPT_LAYERS)).parameters())
     res = {"card": card_info(), "host_ram": _host_ram_gb(), "params": n,
+           "layers": CKPT_LAYERS,
            # module (fp32 masters) + Adam m and v; ZeRO adds the flat master
            "expected_tag_gb": {"stage0": 12 * n / 1e9, "zero": 16 * n / 1e9}}
     failures = []
@@ -1664,9 +1702,10 @@ RESIL_PREEMPT_AT = 3           # part b: SIGTERM at this step boundary
 RESIL_DEADLINE_S = 2.0         # part c: resilience.comm_timeout_s
 RESIL_SLACK_S = 1.0
 RESIL_KEEP = 2                 # tags live on disk at once (checkpoint.keep_last_k)
-# part b's workers train BERT-large's width at a quarter of its depth: the
-# launcher's restart path does not depend on depth, and the script must end
-# inside its time limit with phases 11 and 12 after it
+# the phase trains BERT-large's width at a quarter of its depth, in process
+# and in part b's workers: rollback and the launcher's restart path do not
+# depend on depth, and the script must end inside its time limit with
+# phases 11-13 after it
 RESIL_LAUNCH_LAYERS = 6
 RESTART_LOG = re.compile(r"worker (\w+) \(exit (-?\d+)\); restart (\d+)/(\d+) in ([\d.]+)s")
 
@@ -1762,7 +1801,7 @@ def _resil_rollback(root, dt, failures):
     watchdog's thread): one recovery, and losses and masters equal to the
     clean run's. Returns the report, the faulty engine (for parts a' and c)
     and the clean masters."""
-    engine, batches = _resil_engine()
+    engine, batches = _resil_engine(layers=RESIL_LAUNCH_LAYERS)
     calls = _counting_steps(engine, dt)
     it = iter(batches)
     clean = [engine.train_batch(it) for _ in range(RESIL_STEPS)]
@@ -1771,7 +1810,7 @@ def _resil_rollback(root, dt, failures):
     resilience = {"max_recoveries": 2, "recovery_backoff_s": 0, "divergence_check": True,
                   "step_timeout_s": 60.0, "comm_timeout_s": RESIL_DEADLINE_S,
                   "fault_injection": {"nan_loss": {"at_step": RESIL_NAN_AT}}}
-    engine, batches = _resil_engine(resilience)
+    engine, batches = _resil_engine(resilience, layers=RESIL_LAUNCH_LAYERS)
     fcalls = _counting_steps(engine, dt)
     it, losses = iter(batches), []
     ckpt = os.path.join(root, "rollback")
@@ -1789,7 +1828,7 @@ def _resil_rollback(root, dt, failures):
     masters = _host_masters(engine)
     diff = {k: float((masters[k] - v).abs().max()) for k, v in clean_masters.items()
             if not torch.equal(masters[k], v)}
-    want = [FLASH_PER_STEP[k] for k in FLASH_KERNELS]
+    want = [FLASH_PER_STEP[k] * RESIL_LAUNCH_LAYERS // 24 for k in FLASH_KERNELS]
     res = dict(recoveries=engine.resilience.total_recoveries,
                quarantined=engine.resilience.quarantined_steps,
                losses=losses, losses_clean=clean, equal=losses == clean and not diff,
@@ -1957,27 +1996,19 @@ def phase_resil():
             res["deadline"]["s"] = time.perf_counter() - t0
             _free(engine)
             shutil.rmtree(ckpt, ignore_errors=True)
-            # the uninterrupted run at part b's depth, for the workers' SHA-256
-            engine, batches = _resil_engine(layers=RESIL_LAUNCH_LAYERS)
-            it = iter(batches)
-            for _ in range(RESIL_STEPS):
-                engine.train_batch(it)
-            launch_masters = _host_masters(engine)
-            _free(engine)
         finally:
             torch.use_deterministic_algorithms(False)
             torch.distributed.destroy_process_group()
             comm.forget_timeout()
+        # part a's clean run is the uninterrupted run the workers must end on
         res["uninterrupted_sha256"] = _masters_sha256(clean_masters)
-        res["uninterrupted_sha256_launch_depth"] = _masters_sha256(launch_masters)
-        del clean_masters, launch_masters
+        del clean_masters
         torch.cuda.empty_cache()
         res["launcher"] = {}
         for fault in ("kill", "preempt"):
             res["launcher"][fault] = _report("resil_launch", dict(
                 fault=fault, layers=RESIL_LAUNCH_LAYERS,
-                **_resil_launch(fault, root, res["uninterrupted_sha256_launch_depth"],
-                                failures)))
+                **_resil_launch(fault, root, res["uninterrupted_sha256"], failures)))
     res["failures"] = failures
     if failures:    # every check of the phase ran; any failure fails it
         print("resil", json.dumps(res), flush=True)
@@ -2150,6 +2181,10 @@ def phase_pld():
 # ---------------------------------------------------------------------------
 
 SPEC_K, CHUNK, SHARED_PREFIX = 4, 256, 256
+# the bf16 timed passes run GPT-2 XL's width at a quarter of its depth, so
+# that the script ends inside its time limit with phase 13 after it; the
+# oracles keep the whole depth (int8's token match depends on it)
+SERVE6_TIMED_LAYERS = 12
 # submitted in two waves, the second after the first has drained: the
 # second wave's shared-prefix prompts hit the first's entries
 WAVES = ((0, 1, 4, 6), (2, 3, 5, 7))
@@ -2401,6 +2436,7 @@ def phase_serve6():
                                          equal_requests=sum(o == w for o, w in
                                                             zip(outs, qwants)))
     int8_bytes = tq.quantized_bytes(qmodel)
+    bf16_bytes = tq.quantized_bytes(model) // 2      # the fp32 model's bytes in bf16
     del eng, qmodel
     torch.cuda.empty_cache()
 
@@ -2423,9 +2459,11 @@ def phase_serve6():
     torch.cuda.empty_cache()
 
     # b. bf16, timed, in one call: k = 0; k = 4; chunks of 256; the prefix cache
-    model = init_gpt2(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     res["int8_weight_bytes"] = int8_bytes
-    res["bf16_weight_bytes"] = tq.quantized_bytes(model)
+    res["bf16_weight_bytes"] = bf16_bytes
+    cfg = GPT2Config.gpt2_xl(num_hidden_layers=SERVE6_TIMED_LAYERS)
+    res["timed_layers"] = SERVE6_TIMED_LAYERS
+    model = init_gpt2(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     _drive6(_engine6(model, cfg, "bf16"), prompts)          # warm-up pass
     res["bf16"] = {}
     for label, knobs in (("k0", {}), ("k4", dict(speculative_k=SPEC_K)),
@@ -2464,8 +2502,460 @@ def verify_rows_case(kv):
     return dict(case=f"verify rows C={SPEC_K + 1} vs C=1 pages={kv}", rows_equal=equal)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving fleet (replica processes behind a router)
+# ---------------------------------------------------------------------------
+
+FLEET_DEVICE = "cuda"
+FLEET_KILL_AT = 6                  # the doomed replica's busy step (mid-decode)
+FLEET_FRAME_BYTES = 1 << 27        # a GPT-2 XL fp32 page pair is 78.6 MB
+FLEET_READY_S = 300.0
+FLEET_TIMEOUT_S = 300.0
+
+
+def _fleet_model():
+    """The replicas' model block: GPT-2 XL, dropout off."""
+    return {}
+
+
+def _fleet_spec(dtype, kv, fault=None):
+    """A replica spec: phase 3's engine (8 slots, 128-token pages, the
+    decode kernel below the largest bucket and the band kernel in it) on
+    seeded random weights in ``dtype``, with the telemetry endpoint armed
+    (its port comes from ``DSTPU_TELEMETRY_PORT``) and handoff frames big
+    enough for a page pair."""
+    from deepspeed_tpu_torch import GPT2Config
+    from deepspeed_tpu_torch.inference.serving.scheduler import default_buckets
+
+    spec = {"model": _fleet_model(), "seed": 0, "dtype": dtype, "device": FLEET_DEVICE}
+    cfg = GPT2Config(**spec["model"])
+    largest = default_buckets(cfg.max_position_embeddings - 1)[-1]
+    serving = {"max_slots": B, "max_seq_len": cfg.max_position_embeddings,
+               "kv_cache_dtype": kv, "kv_page_tokens": PT,
+               "attention_impl": {"default": "pallas_decode", str(largest): "pallas_sparse"}}
+    if fault:
+        serving["fault_injection"] = fault
+    spec["ds_config"] = {"train_batch_size": 1, "serving": serving,
+                         "telemetry": {"enabled": True},
+                         "fleet": {"drain_timeout_s": FLEET_TIMEOUT_S,
+                                   "handoff": {"max_frame_bytes": FLEET_FRAME_BYTES,
+                                               "attempt_timeout_s": 120.0}}}
+    return spec
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _ReplicaProc:
+    """``python -m deepspeed_tpu_torch.inference.serving.replica`` started
+    with its own telemetry port, its output in a log file."""
+
+    def __init__(self, root, name, spec, role):
+        self.name, self.role = name, role
+        self.tport = _free_port()
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        self.log = os.path.join(root, f"{name}.log")
+        env = dict(os.environ, DSTPU_TELEMETRY_PORT=str(self.tport),
+                   PYTHONPATH=os.getcwd() + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "deepspeed_tpu_torch.inference.serving.replica",
+                 "--config", path, "--port", "0", "--role", role],
+                stdout=out, stderr=subprocess.STDOUT, env=env)
+        self.port = None
+        self.t_start = time.perf_counter()
+        self.ready_s = None
+
+    def lines(self):
+        with open(self.log) as f:
+            return f.read().splitlines()
+
+    def wait_ready(self):
+        deadline = time.monotonic() + FLEET_READY_S
+        while time.monotonic() < deadline:
+            for line in self.lines():
+                if line.startswith('{"ready"'):
+                    self.port = int(json.loads(line)["port"])
+                    self.ready_s = time.perf_counter() - self.t_start
+                    return self
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"fleet: replica {self.name} exited {self.proc.returncode} "
+                                   f"before ready: {self.lines()[-20:]}")
+            time.sleep(0.1)
+        raise RuntimeError(f"fleet: replica {self.name} not ready in {FLEET_READY_S} s")
+
+    def endpoint(self):
+        from deepspeed_tpu_torch.inference.serving.router import ReplicaEndpoint
+
+        return ReplicaEndpoint(self.name, "127.0.0.1", self.port, role=self.role)
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.tport}"
+
+    def stop(self, timeout_s=FLEET_TIMEOUT_S):
+        """SIGTERM (the drain), then the exit code; SIGKILL past the deadline."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+            raise RuntimeError(f"fleet: replica {self.name} did not exit on SIGTERM")
+
+
+def _fleet_router(replicas):
+    from deepspeed_tpu_torch.inference.serving.config import (
+        FleetConfig,
+        HandoffConfig,
+        RolesConfig,
+    )
+    from deepspeed_tpu_torch.inference.serving.router import Router
+
+    return Router([r.endpoint() for r in replicas], FleetConfig(
+        enabled=True, retry_budget=3, retry_backoff_s=0.05,
+        attempt_timeout_s=FLEET_TIMEOUT_S, health_ttl_s=0.25, affinity_prefix_tokens=0,
+        roles=RolesConfig(enabled=True), handoff=HandoffConfig(enabled=True)))
+
+
+def _fleet_pass(router, prompts, on_token=None):
+    """Every prompt through the router at once. Per request: the tokens
+    streamed (in order), the host time of each, TTFT from its submit, and
+    the final output."""
+    t0 = time.perf_counter()
+    recs = [dict(prompt_len=len(p), stream=[], times=[]) for p in prompts]
+
+    def cb(i):
+        def fn(_key, tok):
+            recs[i]["stream"].append(int(tok))
+            recs[i]["times"].append(time.perf_counter())
+            if on_token is not None:
+                on_token(i, recs)
+        return fn
+
+    futs = []
+    for i, p in enumerate(prompts):
+        recs[i]["submit"] = time.perf_counter()
+        futs.append(router.submit(p, max_new_tokens=NEW_TOKENS, timeout_s=FLEET_TIMEOUT_S,
+                                  stream_cb=cb(i)))
+    for rec, fut in zip(recs, futs):
+        rec["out"] = list(fut.result(timeout=FLEET_TIMEOUT_S))
+        if rec["stream"] != rec["out"]:
+            raise RuntimeError(f"fleet: streamed tokens differ from the result (a duplicate "
+                               f"or a lost token): {len(rec['stream'])} streamed, "
+                               f"{len(rec['out'])} returned")
+        rec["ttft_s"] = rec["times"][0] - rec["submit"]
+    return recs, time.perf_counter() - t0
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q / 100 * len(xs)) - 1)]
+
+
+def _scrape(replicas):
+    """A FleetCollector over the replicas' engine endpoints: each one's
+    serving and kernels snapshots, its handoff log, and its parameters'
+    SHA-256 (the replica's health doc)."""
+    from deepspeed_tpu_torch.telemetry import FleetCollector
+
+    coll = FleetCollector(timeout_s=30.0)
+    for i, r in enumerate(replicas):
+        coll.add_endpoint(i, r.url, role=r.role)
+    summary = coll.scrape()
+    if summary["down"]:
+        raise RuntimeError(f"fleet: the collector found replicas down: {summary}")
+    snaps = coll.fleet_snapshot()["ranks"]
+    fleet = coll.fleet_metrics()
+    out = {}
+    for i, r in enumerate(replicas):
+        snap = snaps[str(i)]["snapshot"]
+        with urllib.request.urlopen(r.url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        out[r.name] = dict(
+            role=r.role, url=r.url, up=fleet.get(f"Fleet/rank{i}/up"),
+            serving={k: snap["serving"].get(k) for k in (
+                "requests_completed", "tokens_emitted", "decode_steps", "decode_time_s",
+                "tokens_per_sec",
+                "ttft_p50_s", "ttft_p95_s", "prefill_calls", "prefill_tokens",
+                "handoff_exports", "handoff_installs", "handoff_dup_installs",
+                "handoff_resumes", "handoff_reaped")},
+            kernels={k: v["launches"] for k, v in snap["kernels"].items()},
+            handoff=snap.get("handoff"),
+            params_sha256=health["replica"]["params_sha256"])
+    return out
+
+
+def _check_launches(scraped, name, kernels):
+    got = scraped[name]["kernels"]
+    if FLEET_DEVICE == "cuda" and min(got[k] for k in kernels) <= 0:
+        raise RuntimeError(f"fleet: {name} ({scraped[name]['role']}) never launched "
+                           f"{kernels}: {got}")
+
+
+def _reprefill_ms(replica, prompt):
+    """A prompt's first token from the replica alone (a forced plain
+    submit, as the router's degraded route sends it), client side: the
+    re-prefill a decode replica would run without the handoff."""
+    import socket
+    import uuid
+
+    from deepspeed_tpu_torch.inference.serving.router import read_line, send_line
+
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", replica.port), timeout=FLEET_TIMEOUT_S) as s:
+        send_line(s, {"op": "submit", "v": 1, "key": uuid.uuid4().hex, "prompt": prompt,
+                      "max_new_tokens": 1, "force": True})
+        stream = s.makefile("rb")
+        first = None
+        while True:
+            doc = read_line(stream)
+            if doc is None or "error" in doc or "rejected" in doc:
+                raise RuntimeError(f"fleet: forced submit on {replica.name} failed: {doc}")
+            if "t" in doc and first is None:
+                first = time.perf_counter()
+            if doc.get("done"):
+                break
+    return 1e3 * (first - t0)
+
+
+def phase_fleet():
+    """Phase 13, the serving fleet at GPT-2 XL width: replica processes of
+    the port behind a ``Router``; disaggregated prefill/decode against
+    ``generate()``, the handoff timed, a drain, a failover, and the
+    collector over the replicas' engine endpoints. The fp32 and bf16
+    prefill/decode pairs start together, and the failover's pair starts
+    while the drain runs, so that fewer starts wait in turn."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import generate
+    from deepspeed_tpu_torch.inference.serving.replica import build_model, params_sha256
+    from deepspeed_tpu_torch.launcher.supervisor import EXIT_PREEMPTED
+
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fleet_", dir="build")
+    procs = []
+
+    def spawn(name, spec, role):
+        r = _ReplicaProc(root, name, spec, role)
+        procs.append(r)
+        return r
+
+    def stop(*replicas):
+        for r in replicas:
+            rc = r.stop()
+            if rc != EXIT_PREEMPTED:
+                raise RuntimeError(f"fleet: {r.name} exited {rc} on SIGTERM, not "
+                                   f"{EXIT_PREEMPTED}")
+
+    prompts = _prompts()
+    res = dict(model="gpt2_xl (seed 0 on a CPU generator), 8 slots, max_seq_len 1024, "
+                     "128-token pages, one H100 shared by the replicas",
+               prompt_lens=list(PROMPT_LENS), new_tokens=NEW_TOKENS)
+    if FLEET_DEVICE == "cuda":
+        res["card_free_gb_at_start"] = torch.cuda.mem_get_info()[0] / 2 ** 30
+    t_phase = time.perf_counter()
+    try:
+        pre, dec = (spawn("prefill_fp32", _fleet_spec("fp32", "fp32"), "prefill"),
+                    spawn("decode_fp32", _fleet_spec("fp32", "fp32"), "decode"))
+        pre16, dec16 = (spawn("prefill_bf16", _fleet_spec("bf16", "bf16"), "prefill"),
+                        spawn("decode_bf16", _fleet_spec("bf16", "bf16"), "decode"))
+        t0 = time.perf_counter()
+        model, cfg = build_model(_fleet_spec("fp32", "fp32"), device=FLEET_DEVICE)
+        oracle_sha = params_sha256(model)
+        wants = [generate(model, cfg, [p], NEW_TOKENS, attn_impl=_impl6(cfg, len(p)),
+                          kv_page_tokens=PT, device=FLEET_DEVICE)[0].tolist() for p in prompts]
+        res["oracle_s"] = time.perf_counter() - t0
+
+        # -- a. disaggregated prefill -> decode, fp32 weights and pool ----------
+        for r in (pre, dec):
+            r.wait_ready()
+        router = _fleet_router([pre, dec])
+        recs, wall = _fleet_pass(router, prompts)
+        counters = router.counters()
+        router.close()
+        if counters["handoff_completed"] != len(prompts) or counters["handoff_failed"]:
+            raise RuntimeError(f"fleet: not every request was handed off: {counters}")
+        outs = [rec["out"] for rec in recs]
+        scraped = _scrape([pre, dec])
+        _check_launches(scraped, pre.name, SERVING_KERNELS)
+        _check_launches(scraped, dec.name, ("decode_attention",))
+        _check_hashes(scraped, oracle_sha)
+        res["disagg_fp32"] = dict(
+            wall_s=wall, router=counters, ready_s={r.name: r.ready_s for r in (pre, dec)},
+            oracle=_oracle6(model, cfg, prompts, outs, wants, "fleet disagg fp32"),
+            equal=sum(o == w for o, w in zip(outs, wants)), replicas=scraped,
+            params_sha256=oracle_sha)
+        stop(pre, dec)
+
+        # -- b. the handoff timed, bf16 weights and pool -------------------------
+        for r in (pre16, dec16):
+            r.wait_ready()
+        router = _fleet_router([pre16, dec16])
+        _fleet_pass(router, prompts)                         # warm-up pass
+        before = _scrape([pre16, dec16])
+        recs, wall = _fleet_pass(router, prompts)
+        after = _scrape([pre16, dec16])
+        counters = router.counters()
+        sent = {e["key"]: e for e in after[pre16.name]["handoff"]["sent"]}
+        inst = {e["key"]: e for e in after[dec16.name]["handoff"]["installed"]}
+        old = {e["key"] for e in before[pre16.name]["handoff"]["sent"]}
+        rows = []
+        for key in sorted(set(sent) - old, key=lambda k: sent[k]["prompt_len"]):
+            s, i = sent[key], inst[key]
+            rows.append(dict(prompt_len=s["prompt_len"], pages=s["pages"], bytes=s["bytes"],
+                             export_ms=1e3 * s["export_s"], send_ms=1e3 * s["send_s"],
+                             install_ms=1e3 * i["install_s"]))
+        if len(rows) != len(prompts):
+            raise RuntimeError(f"fleet: {len(rows)} handoffs logged for {len(prompts)} requests")
+        for row in rows:
+            row["reprefill_ms"] = _reprefill_ms(
+                dec16, next(p for p in prompts if len(p) == row["prompt_len"]))
+        d0, d1 = before[dec16.name]["serving"], after[dec16.name]["serving"]
+        ttfts = [rec["ttft_s"] for rec in recs]
+        _check_hashes(after, None)
+        res["handoff_bf16"] = dict(
+            wall_s=wall, router=counters, by_request=rows,
+            ready_s={r.name: r.ready_s for r in (pre16, dec16)},
+            ttft_p50_s=_pct(ttfts, 50), ttft_p95_s=_pct(ttfts, 95),
+            # the decode replica's own clock: tokens over its decode steps' time
+            decode_tokens_per_s=(d1["tokens_emitted"] - d0["tokens_emitted"])
+            / (d1["decode_time_s"] - d0["decode_time_s"]),
+            decode_steps=d1["decode_steps"] - d0["decode_steps"],
+            bytes_total=sum(r["bytes"] for r in rows), replicas=after)
+
+        # -- c. drain: SIGTERM the decode replica with every lane decoding, while
+        # the failover's pair starts --------------------------------------------
+        doomed = spawn("doomed_fp32", _fleet_spec(
+            "fp32", "fp32", fault={"kill_replica": {"at_step": FLEET_KILL_AT}}), "mixed")
+        safe = spawn("safe_fp32", _fleet_spec("fp32", "fp32"), "mixed")
+        res["drain_bf16"] = _fleet_drain(router, pre16, dec16, prompts, recs, counters)
+        router.close()
+        stop(pre16)
+
+        # -- d. failover: the kill arm ends one mixed replica mid-decode ---------
+        for r in (doomed, safe):
+            r.wait_ready()
+        router = _fleet_router([doomed, safe])
+        recs, wall = _fleet_pass(router, prompts)
+        counters = router.counters()
+        router.close()
+        rc = doomed.proc.wait(timeout=60)
+        if rc != -signal.SIGKILL:
+            raise RuntimeError(f"fleet: the doomed replica exited {rc}, not by SIGKILL")
+        if counters["retried"] < 1 or counters["poisoned"]:
+            raise RuntimeError(f"fleet: no failover happened: {counters}")
+        outs = [rec["out"] for rec in recs]
+        gaps = [max(b - a for a, b in zip(rec["times"], rec["times"][1:])) for rec in recs]
+        steps = sorted(b - a for rec in recs for a, b in zip(rec["times"], rec["times"][1:]))
+        scraped = _scrape([safe])
+        _check_launches(scraped, safe.name, SERVING_KERNELS)
+        _check_hashes(scraped, oracle_sha)
+        res["failover_fp32"] = dict(
+            wall_s=wall, router=counters, doomed_exit=rc, kill_at_busy_step=FLEET_KILL_AT,
+            ready_s={r.name: r.ready_s for r in (doomed, safe)},
+            oracle=_oracle6(model, cfg, prompts, outs, wants, "fleet failover fp32"),
+            equal=sum(o == w for o, w in zip(outs, wants)),
+            # the longest pause in any request's stream (the failover: EOF,
+            # re-route, re-prefill on the survivor, replay) against the
+            # median gap between two tokens of a stream
+            failover_s=max(gaps), max_gap_s_by_request=gaps,
+            median_token_gap_s=steps[len(steps) // 2], replicas=scraped)
+        del model
+        torch.cuda.empty_cache()
+        stop(safe)
+    except BaseException:
+        for r in procs:              # the replicas' own account of the failure
+            print(f"--- {r.name} (exit {r.proc.poll()}):\n" + "\n".join(r.lines()[-30:]),
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        for r in procs:
+            if r.proc.poll() is None:
+                r.proc.kill()
+                r.proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _fleet_drain(router, pre, dec, prompts, timed, timed_counters):
+    """SIGTERM to the decode replica once every request of a pass decodes
+    there: each finishes without a re-route, the replica exits
+    ``EXIT_PREEMPTED`` after a clean drain, and later requests go to the
+    prefill replica (the router's degraded route)."""
+    from deepspeed_tpu_torch.launcher.supervisor import EXIT_PREEMPTED
+
+    decoding = threading.Event()
+
+    def on_token(_i, recs):
+        if all(len(r["stream"]) >= 2 for r in recs):
+            decoding.set()
+
+    box = {}
+    worker = threading.Thread(target=lambda: box.update(
+        zip(("recs", "wall"), _fleet_pass(router, prompts, on_token))), daemon=True)
+    worker.start()
+    if not decoding.wait(FLEET_TIMEOUT_S):
+        raise RuntimeError("fleet: the drain pass never had every lane decoding")
+    t_term = time.perf_counter()
+    dec.proc.send_signal(signal.SIGTERM)
+    worker.join(FLEET_TIMEOUT_S)
+    if "recs" not in box:
+        raise RuntimeError("fleet: the drain pass did not finish")
+    rc = dec.proc.wait(timeout=FLEET_TIMEOUT_S)
+    drain_s = time.perf_counter() - t_term
+    drained = [json.loads(line) for line in dec.lines() if line.startswith('{"drained"')]
+    if rc != EXIT_PREEMPTED or drained != [{"drained": True}]:
+        raise RuntimeError(f"fleet: the drained replica exited {rc} ({drained}), not "
+                           f"{EXIT_PREEMPTED} after a clean drain")
+    counters = router.counters()
+    if counters["retried"] != timed_counters["retried"] or counters["poisoned"]:
+        raise RuntimeError(f"fleet: a request in flight on the drained replica was "
+                           f"re-routed: {counters}")
+    for rec in box["recs"]:
+        if len(rec["out"]) != NEW_TOKENS:
+            raise RuntimeError(f"fleet: a drained request ended short: {rec['prompt_len']}")
+    before = _scrape([pre])[pre.name]["serving"]["tokens_emitted"]
+    later = [router.submit(p, max_new_tokens=NEW_TOKENS).result(timeout=FLEET_TIMEOUT_S)
+             for p in prompts[:2]]
+    after = _scrape([pre])[pre.name]["serving"]["tokens_emitted"]
+    if after - before != 2 * (NEW_TOKENS - 1) or any(len(x) != NEW_TOKENS for x in later):
+        raise RuntimeError("fleet: requests after the drain did not go to the other replica")
+    return dict(exit=rc, drain_s=drain_s, router=router.counters(),
+                inflight_finished=len(box["recs"]),
+                same_as_timed_pass=sum(a["out"] == b["out"] for a, b in zip(box["recs"], timed)),
+                after_drain_served_by=pre.name)
+
+
+def _check_hashes(scraped, want, wait_s=FLEET_TIMEOUT_S):
+    """Every replica's parameters hash alike (and like ``want``, the
+    oracle's, when given). A replica hashes its parameters on a thread of
+    its own after it is ready: an absent hash is asked for again."""
+    deadline = time.monotonic() + wait_s
+    for name, rep in scraped.items():
+        while rep["params_sha256"] is None and time.monotonic() < deadline:
+            time.sleep(0.5)
+            with urllib.request.urlopen(rep["url"] + "/healthz", timeout=30) as resp:
+                rep["params_sha256"] = json.loads(resp.read())["replica"]["params_sha256"]
+    shas = {rep["params_sha256"] for rep in scraped.values()} | ({want} if want else set())
+    if len(shas) != 1 or None in shas:
+        raise RuntimeError(f"fleet: parameter hashes differ: {shas}")
+
+
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad", "zero", "ckpt", "resil",
-          "pld", "serve6")
+          "pld", "serve6", "fleet")
 
 
 def _report(tag, result):
@@ -2474,6 +2964,11 @@ def _report(tag, result):
 
 
 def _phase(name, fn, *args):
+    # an earlier phase's engines may sit in reference cycles that hold
+    # device memory until the collector runs: start each phase from a card
+    # the script has emptied
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     result = fn(*args)
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2669,6 +3164,8 @@ def main():
         pld = _report("pld", _phase("pld", phase_pld))
     if "serve6" in phases:
         serve6 = _report("serve6", _phase("serve6", phase_serve6))
+    if "fleet" in phases:
+        fleet = _report("fleet", _phase("fleet", phase_fleet))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -2688,6 +3185,10 @@ def main():
             # verify steps and inside its prefill chunks
             serve6_launches={k: serve6["fp32"]["run"][k][name] for k in
                              ("launches", "launches_in_verify", "launches_in_chunks")},
+            # phase 13: the launches inside each replica process of the
+            # disaggregated fp32 pass, read from its engine endpoint
+            fleet_launches={r: v["kernels"][name] for r, v in
+                            fleet["disagg_fp32"]["replicas"].items()},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
@@ -2745,7 +3246,7 @@ def main():
                            flash_cases=flash_cases, flash_overflow=flash_overflow,
                            train=trained, train_fp16=trained_fp16,
                            grad_oracle=grad_oracle, zero=zero, ckpt=ckpt, resil=resil,
-                           pld=pld, serve6=serve6,
+                           pld=pld, serve6=serve6, fleet=fleet,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)

@@ -18,7 +18,10 @@ Ported so far:
   flash-attention forward, dq and dk/dv kernels with in-kernel dropout;
 - data parallelism over ``torch.distributed`` (``init_distributed``) with
   ZeRO stages 1-3 and ZeRO-Offload (``zero_optimization``), the offload's
-  Adam on the host kernel ``csrc/cpu_adam.cpp``.
+  Adam on the host kernel ``csrc/cpu_adam.cpp``;
+- the serving fleet (``inference/serving/``): replicas behind a router,
+  the KV-page handoff between prefill and decode replicas, drain, the
+  autoscaler, the weight rollout and the chaos harness.
 """
 
 from deepspeed_tpu_torch import kernels
@@ -32,7 +35,9 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
     DeepSpeedTransformerLayer,
 )
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
+from deepspeed_tpu_torch.runtime.constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.runtime.lr_schedules import add_tuning_arguments
 from deepspeed_tpu_torch.runtime.zero import zero3_sharded_init
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -57,8 +62,26 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-__all__ = ["BertConfig", "BertForPreTraining", "DeepSpeedConfig", "DeepSpeedConfigError",
+def add_config_arguments(parser):
+    """Add the DeepSpeed-style arguments to an argparse parser, as the JAX
+    package adds them."""
+    group = parser.add_argument_group("DeepSpeedTPU", "DeepSpeedTPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeedTPU (helper flag for user code, no impact on library behavior)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeedTPU json configuration.")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated enable flag (kept for config compatibility)")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated config path (kept for config compatibility)")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI; this flag will cause distributed env discovery through MPI.")
+    return parser
+
+
+__all__ = ["ADAM_OPTIMIZER", "LAMB_OPTIMIZER", "BertConfig", "BertForPreTraining", "DeepSpeedConfig", "DeepSpeedConfigError",
            "DeepSpeedEngine", "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
            "GPT2Config", "GPT2LMHeadModel", "ServingConfig", "ServingEngine",
-           "__version__", "generate", "init_bert", "init_distributed", "init_gpt2",
+           "__version__", "add_config_arguments", "add_tuning_arguments",
+           "generate", "init_bert", "init_distributed", "init_gpt2",
            "initialize", "kernels", "log_dist", "zero3_sharded_init"]

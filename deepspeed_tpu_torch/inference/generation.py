@@ -535,3 +535,7 @@ def generate(model, config, prompt_ids, max_new_tokens, temperature=0.0,
                               torch.full((B,), pos, dtype=torch.long, device=device))
     return torch.stack(out, dim=1)
 
+
+def greedy_generate(model, config, prompt_ids, max_new_tokens, device="cuda"):
+    """Greedy ``generate`` (the JAX package's shorthand)."""
+    return generate(model, config, prompt_ids, max_new_tokens, device=device)

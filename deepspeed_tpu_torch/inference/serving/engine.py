@@ -47,10 +47,24 @@ computed independently; the kernels and their plain versions give a
 query's bits independent of how many queries or lanes ride with it; a
 prefix-cache hit seeds bits an identical computation produced.
 
-Left out (ROADMAP.md): the handoff transport, the tensor-parallel mesh,
-the monitor and the compile sentinels.
+Disaggregated prefill/decode (the fleet's KV handoff): ``submit_handoff``
+prefills a request that retires at its first token and exports the
+lane's pages as stored; a decode engine claims a slot
+(``handoff_claim``), installs the bytes (``handoff_install``) and
+resumes the request (``resume_handoff``). Pool mutations that arrive on
+replica connection threads run on the serving loop (``_run_on_loop``).
+
+With an enabled ``telemetry`` block the engine serves its endpoint
+(``telemetry_server``: the serving, kv_pool, prefix_cache, memtier and
+kernels snapshots and a ``serving_loop`` health provider), evaluates the
+SLO engine at the end of every step from host values only, and writes
+``trace_file`` on ``close()``.
+
+Left out (ROADMAP.md): the tensor-parallel mesh, the monitor and the
+compile sentinels.
 """
 
+import queue as _queue_mod
 import threading
 import time
 
@@ -107,6 +121,7 @@ from deepspeed_tpu_torch.inference.serving.prefix_cache import (
 )
 from deepspeed_tpu_torch.inference.serving.scheduler import (
     ContinuousBatchingScheduler,
+    EngineDrainingError,
     QueueFullError,
     RequestTimeoutError,
     bucket_for,
@@ -114,6 +129,12 @@ from deepspeed_tpu_torch.inference.serving.scheduler import (
 )
 from deepspeed_tpu_torch.kernels import sparse_attention as _sa
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
+
+
+def _submitted_at(age_s):
+    """The enqueue time of a request ``age_s`` seconds old (None: now)."""
+    return time.monotonic() - float(age_s) if age_s and age_s > 0 else None
+
 
 # the decode program each backend's lanes run
 LANE_CLASS = {"dense": "dense", "flash": "dense", "sparse_xla": "sparse_xla",
@@ -597,11 +618,76 @@ class ServingEngine:
         self._busy_steps = 0
         self._loop_thread = None
         self._stop = threading.Event()
+        self._draining = False              # planned restart: admit nothing
+        # the pool has no lock: every mutation happens on the serving-loop
+        # thread. Handoff pool ops (claim/install/free/resume) arrive on
+        # replica connection threads and are posted here, drained at the
+        # top of step()
+        self._loop_ops = _queue_mod.Queue()
 
+        # an explicit block arms the process-global tracer and registry; an
+        # absent block leaves them untouched
         telemetry.configure_from_config(telemetry_config, rank=rank, role="serve")
         self._tracer = telemetry.get_tracer()
+        self._trace_file = None
+        self.telemetry_server = None
+        self.slo = None
         if telemetry_config is not None and telemetry_config.enabled:
-            self.metrics.export_to(telemetry.get_registry())
+            reg = telemetry.get_registry()
+            self._trace_file = telemetry_config.trace_file
+            self.metrics.export_to(reg)
+            if self.prefix_cache is not None and self.prefix_cache.spill is not None:
+                reg.gauge_fn("Serving/SpillTier", self.prefix_cache.spill.stats,
+                             help="host-RAM/disk spill tier occupancy")
+            if self._mem_guard is not None or cfg.host_mem_watermark_mb > 0:
+                reg.gauge_fn("Serving/HostRssMb", read_host_rss_mb,
+                             help="process resident set size (MiB)")
+            if any(kernels.kernel_for_backend(i) for i in impls):
+                # per-kernel launch gauges at /metrics
+                kernels.export_gauges(reg)
+            # an explicit http_port wins; a supervised worker with a null
+            # port inherits DSTPU_TELEMETRY_PORT
+            http_port = telemetry.resolve_http_port(telemetry_config)
+            if http_port is not None:
+                self.telemetry_server = self._build_telemetry_server(http_port)
+            self.slo = telemetry.SloEngine.from_config(
+                telemetry_config, tracer=self._tracer, registry=reg)
+            if self.slo is not None and self.telemetry_server is not None:
+                self.slo.attach(self.telemetry_server)
+
+    def _build_telemetry_server(self, port):
+        srv = telemetry.TelemetryServer(registry=telemetry.get_registry(),
+                                        tracer=self._tracer, port=port)
+        srv.add_snapshot_provider("serving", self.metrics.snapshot)
+        srv.add_snapshot_provider("kv_pool", self.occupancy)
+        srv.add_snapshot_provider("prefix_cache", self.prefix_stats)
+        srv.add_snapshot_provider("memtier", self.memtier_stats)
+        srv.add_snapshot_provider("kernels", kernels.registry_snapshot)
+        srv.add_health_provider("serving_loop", self._loop_health)
+        return srv.start()
+
+    def _loop_health(self):
+        """Healthy unless a background loop was started and then died
+        (synchronous step()/drain() driving is always healthy)."""
+        t = self._loop_thread
+        return {"healthy": t is None or t.is_alive(),
+                "background_loop": t is not None,
+                "steps": self._step_count,
+                "active_requests": len(self._active),
+                "queue_depth": self.scheduler.queue_depth(),
+                "draining": self._draining,
+                "degrade_rung": self._degrade_rung}
+
+    def _slo_values(self):
+        """SLO inputs, host values only: the pushed registry metrics plus
+        the live serving snapshot under ``Serving/*`` (pull gauges are
+        skipped: the snapshot is already here)."""
+        vals = {k: v for k, v in telemetry.get_registry().as_dict(pulled=False).items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        for k, v in self.metrics.snapshot().items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                vals[f"Serving/{k}"] = v
+        return vals
 
     def _check_knobs(self, cfg):
         """The JAX engine's checks of the slice's knobs."""
@@ -645,14 +731,19 @@ class ServingEngine:
     def from_config(cls, model, model_config, ds_config, rank=0, injector=None,
                     device="cuda"):
         """Build from a ds_config (dict or ``DeepSpeedConfig``): its
-        validated ``serving`` block and ``telemetry`` block."""
+        validated ``serving`` and ``telemetry`` blocks; an enabled
+        ``fleet.degrade`` sub-block arms the degraded-mode ladder."""
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
         if isinstance(ds_config, dict):
             ds_config = DeepSpeedConfig(ds_config, world_size=1)
-        return cls(model, model_config, serving_config=ds_config.serving_config,
-                   device=device, injector=injector,
-                   telemetry_config=ds_config.telemetry_config, rank=rank)
+        eng = cls(model, model_config, serving_config=ds_config.serving_config,
+                  device=device, injector=injector,
+                  telemetry_config=ds_config.telemetry_config, rank=rank)
+        fleet = ds_config.fleet_config
+        if fleet.enabled and fleet.degrade.enabled:
+            eng.configure_degrade(fleet.degrade)
+        return eng
 
     # -- degraded-mode ladder -------------------------------------------
     def configure_degrade(self, degrade_config):
@@ -749,12 +840,36 @@ class ServingEngine:
 
     # -- requests -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, eos_token_id=None,
-               timeout_s=None, stream_cb=None):
+               timeout_s=None, stream_cb=None, age_s=0.0):
         """Queue one request; returns its ``ServingFuture``. Raises
-        ``QueueFullError`` at capacity (at half of it on degrade rung 2)
-        and ``ValueError`` for requests that can never fit.
-        ``stream_cb(request_id, token)`` is called for every generated
-        token."""
+        ``QueueFullError`` at capacity (at half of it on degrade rung 2),
+        ``EngineDrainingError`` during a planned drain and ``ValueError``
+        for requests that can never fit. ``stream_cb(request_id, token)``
+        is called for every generated token. ``age_s`` backdates the
+        enqueue time: a re-routed request keeps its deadline and TTFT
+        clock."""
+        self._check_draining()
+        if max_new_tokens is None:
+            max_new_tokens = self.config.default_max_new_tokens
+        prompt = self._check_request(prompt_ids, max_new_tokens, "max_new_tokens",
+                                     eos_token_id)
+        req = self.scheduler.submit(
+            prompt, max_new_tokens=int(max_new_tokens),
+            eos_token_id=None if eos_token_id is None else int(eos_token_id),
+            timeout_s=timeout_s, stream_cb=stream_cb, submitted_at=_submitted_at(age_s))
+        return req.future
+
+    def _check_draining(self):
+        if self._draining:
+            raise EngineDrainingError(
+                "engine is draining for a planned restart; "
+                "route this request to another replica")
+
+    def _check_request(self, prompt_ids, n_new, what, eos_token_id):
+        """A request's prompt as ints, after the checks both submit paths
+        share: ids in the vocabulary, the prompt in a bucket, prompt plus
+        ``n_new`` within ``max_seq_len``, and the degrade rung's queue
+        budget."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if len(prompt) < 1:
             raise ValueError("prompt must contain at least one token")
@@ -763,15 +878,13 @@ class ServingEngine:
             # an out-of-range id would trip a device-side assert in the
             # embedding gather and take the CUDA context down with it
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
-        if max_new_tokens is None:
-            max_new_tokens = self.config.default_max_new_tokens
-        if max_new_tokens < 1:
-            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if n_new < 1:
+            raise ValueError(f"{what} must be >= 1, got {n_new}")
         bucket_for(len(prompt), self.scheduler.buckets)  # raises if too long
-        total = len(prompt) + int(max_new_tokens)
+        total = len(prompt) + int(n_new)
         if total > self.max_seq_len:
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"prompt ({len(prompt)}) + {what} ({n_new}) "
                 f"= {total} exceeds serving max_seq_len={self.max_seq_len}")
         if eos_token_id is not None and not 0 <= int(eos_token_id) < vocab:
             raise ValueError(f"eos_token_id={eos_token_id} outside vocab [0, {vocab})")
@@ -780,11 +893,80 @@ class ServingEngine:
             if self.scheduler.queue_depth() >= budget:
                 raise QueueFullError(f"admission queue shrunk to {budget} at degrade "
                                      f"rung {self._degrade_rung}")
-        req = self.scheduler.submit(
+        return prompt
+
+    # -- disaggregated prefill/decode handoff ---------------------------
+    def submit_handoff(self, prompt_ids, reserve_new_tokens, eos_token_id=None,
+                       timeout_s=None, stream_cb=None, age_s=0.0):
+        """Prefill-only submit: prefill ``prompt_ids``, emit the first
+        token and retire (``max_new_tokens=1``), exporting the lane's
+        pages as ``req.export_payload`` for a decode replica.
+
+        ``reserve_new_tokens`` is the original request's generation
+        budget: the pages span the whole request, so the exported layout
+        (and the int8 scales, taken over the whole allocated span) is the
+        one a mixed admission of the original request lays out, bit for
+        bit. Returns the Request (read ``export_payload`` after
+        ``future.result()``)."""
+        self._check_draining()
+        reserve = int(reserve_new_tokens)
+        prompt = self._check_request(prompt_ids, reserve, "reserve_new_tokens",
+                                     eos_token_id)
+        req = self.scheduler.adopt(
+            prompt, max_new_tokens=1,
+            eos_token_id=None if eos_token_id is None else int(eos_token_id),
+            timeout_s=timeout_s, stream_cb=stream_cb, submitted_at=_submitted_at(age_s))
+        # flags set before the request becomes visible to the loop
+        req.handoff_export = True
+        req.alloc_tokens_override = min(len(prompt) + reserve, self.max_seq_len)
+        self.scheduler.enqueue(req)
+        return req
+
+    def handoff_claim(self, n_tokens):
+        """Decode side, phase 1: a pool slot sized for the whole request
+        span (PoolExhaustedError under pressure). An armed injector claims
+        full lanes, as ``_alloc_tokens`` does, so the claim holds at least
+        as many pages as the (also full-lane) export ships."""
+        n = None if self.injector is not None else int(n_tokens)
+        return self._run_on_loop(lambda: self.pool.allocate(n))
+
+    def handoff_install(self, slot, meta, frames, handoff_key=None):
+        """Decode side, phase 2: install the shipped pages into the
+        claimed slot. False on an idempotent duplicate."""
+        def _do():
+            fresh = self.pool.install_raw(slot, meta, frames, handoff_key=handoff_key)
+            self.metrics.record_handoff("install" if fresh else "dup_install")
+            return fresh
+        return self._run_on_loop(_do)
+
+    def handoff_release(self, slot):
+        """Free a claimed or installed slot (orphan reap, failed resume)."""
+        return self._run_on_loop(lambda: self.pool.free(slot))
+
+    def resume_handoff(self, slot, prompt_ids, first_token, max_new_tokens,
+                       eos_token_id=None, timeout_s=None, stream_cb=None, age_s=0.0):
+        """Activate a lane whose pages a handoff installed and decode on
+        from where prefill stopped. The first token was delivered by the
+        prefill replica: it is recorded (``emitted=1``, on the future) but
+        not streamed again. Returns the Request."""
+        prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        req = self.scheduler.adopt(
             prompt, max_new_tokens=int(max_new_tokens),
             eos_token_id=None if eos_token_id is None else int(eos_token_id),
-            timeout_s=timeout_s, stream_cb=stream_cb)
-        return req.future
+            timeout_s=timeout_s, stream_cb=stream_cb, submitted_at=_submitted_at(age_s))
+
+        def _do():
+            req.attn_impl = self._impl_for_len(len(prompt))
+            now = time.monotonic()
+            req.first_token_time = now
+            self._activate(req, slot, int(first_token), emit=False)
+            req.future._append(int(first_token))
+            req.emitted = 1
+            self.metrics.record_handoff("resume")
+            # retire at once if the first token already ended the request
+            self._maybe_retire(req, int(first_token), now)
+        self._run_on_loop(_do)
+        return req
 
     # -- the serving loop ----------------------------------------------
     @torch.no_grad()
@@ -795,6 +977,7 @@ class ServingEngine:
         Returns an activity dict (all zeros = idle)."""
         now = time.monotonic()
         stats = {"admitted": 0, "decoded": 0, "retired": 0, "prefill_chunks": 0}
+        self._drain_loop_ops()
         for req in self.scheduler.pop_expired(now):
             self._finish_timeout(req, phase="queued")
             stats["retired"] += 1
@@ -829,6 +1012,10 @@ class ServingEngine:
             threshold = max(1, int(self._degrade.config.pressure_queue_frac
                                    * self.config.max_queue))
             self._degrade.update(self.scheduler.queue_depth() >= threshold)
+        if self.slo is not None:
+            # host values only; under policy "fail" a firing rule raises
+            # SloViolationError out of step()
+            self.slo.evaluate(self._slo_values())
         return stats
 
     def _decode(self, stats):
@@ -1000,9 +1187,60 @@ class ServingEngine:
         self._stop.set()
         self._loop_thread.join(timeout_s)
         self._loop_thread = None
+        self._drain_loop_ops()   # release any waiter the loop left behind
 
     def close(self):
         self.stop()
+        if self.telemetry_server is not None:
+            self.telemetry_server.stop()
+            self.telemetry_server = None
+        if self._trace_file:
+            self._tracer.write(self._trace_file)
+
+    @property
+    def draining(self):
+        return self._draining
+
+    def begin_drain(self):
+        """Planned-restart drain: admit nothing more (``submit`` raises
+        ``EngineDrainingError``) and step the accepted work to completion.
+        A replica flips this on SIGTERM, finishes its lanes and exits
+        ``EXIT_PREEMPTED``."""
+        self._draining = True
+
+    # -- loop-thread marshaling -----------------------------------------
+    def _drain_loop_ops(self):
+        """Run the pool ops other threads posted (handoff claim, install,
+        free, resume) on the serving-loop thread."""
+        while True:
+            try:
+                fn, done, box = self._loop_ops.get_nowait()
+            except _queue_mod.Empty:
+                return
+            try:
+                box.append(("ok", fn()))
+            except BaseException as exc:  # marshal, don't kill the loop
+                box.append(("err", exc))
+            finally:
+                done.set()
+
+    def _run_on_loop(self, fn, timeout_s=30.0):
+        """Run ``fn`` on the serving-loop thread and return its result
+        (its exception is raised here). Runs inline when no background
+        loop is alive or when already on the loop thread."""
+        t = self._loop_thread
+        if t is None or not t.is_alive() or t is threading.current_thread():
+            return fn()
+        done = threading.Event()
+        box = []
+        self._loop_ops.put((fn, done, box))
+        if not done.wait(timeout_s):
+            raise TimeoutError(f"serving loop did not service a marshaled op within "
+                               f"{timeout_s}s (loop stalled?)")
+        kind, val = box[0]
+        if kind == "err":
+            raise val
+        return val
 
     # -- admission ------------------------------------------------------
     def _admit_from_queue(self, stats):
@@ -1025,6 +1263,10 @@ class ServingEngine:
         it claims the full lane."""
         if self.injector is not None:
             return None
+        # a handoff export claims the original request's whole span
+        override = getattr(req, "alloc_tokens_override", None)
+        if override is not None:
+            return int(override)
         return min(len(req.prompt) + req.max_new_tokens, self.max_seq_len)
 
     def _admit_from_queue_now(self, stats):
@@ -1309,7 +1551,7 @@ class ServingEngine:
                 ev.to(self.device, self.pool.compute_dtype))
 
     # -- internals ------------------------------------------------------
-    def _activate(self, req, slot, first_tok):
+    def _activate(self, req, slot, first_tok, emit=True):
         req.slot = slot
         self._active[slot] = req
         self._lane_tokens[slot] = first_tok
@@ -1323,7 +1565,8 @@ class ServingEngine:
             row[:len(req.prompt)] = req.prompt
             row[len(req.prompt)] = first_tok
         self._lane_dirty = True
-        self._emit(req, first_tok)
+        if emit:
+            self._emit(req, first_tok)
 
     def _emit(self, req, token):
         req.emitted += 1
@@ -1362,6 +1605,16 @@ class ServingEngine:
         self.metrics.record_timeout()
 
     def _release_slot(self, req):
+        if req.slot is not None and getattr(req, "handoff_export", False):
+            # the lane's pages, copied to the host before the slot is freed;
+            # the replica's handoff sender ships them to the decode replica
+            try:
+                t0 = time.monotonic()
+                req.export_payload = self.pool.export_lane(req.slot)
+                req.export_s = time.monotonic() - t0
+                self.metrics.record_handoff("export")
+            except Exception as exc:
+                req.export_error = exc
         if req.slot is not None:
             self._lane_active[req.slot] = False
             self._lane_impl[req.slot] = "dense"

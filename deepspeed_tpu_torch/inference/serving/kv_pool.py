@@ -15,6 +15,14 @@ the bytes, "int8" quarters them with per-(layer, slot, head) symmetric
 fp32 scales set at install from the prefilled lane and fixed while the
 lane decodes. The pool is updated in place.
 
+``export_lane`` / ``install_raw`` carry a live lane between two pools
+for the fleet's disaggregated prefill/decode handoff: the pages as stored
+(storage-dtype bytes, never dequantized), one frame a logical page (its
+k bytes, then its v bytes, each ``[L, nh, page_tokens, hd]`` in C
+order), and in int8 mode a trailing frame with the lane's per-(layer,
+head) k scales, then v scales (fp32 ``[L, nh, 1, 1]``, the JAX package's
+per-slot layout), with the JAX package's meta keys.
+
 ``export_entry_frames`` / ``import_entry_frames`` turn a host-side KV
 entry (CPU tensors in their storage dtype) into raw byte frames and back,
 bit for bit, with the JAX package's meta dict: the prefix cache's spill
@@ -102,6 +110,10 @@ class KVCachePool:
         # logical -> physical page per lane; 0 (the null page) = unmapped
         self.page_tables = np.zeros((self.max_slots, self.pages_per_lane), np.int32)
         self._lane_pages = [[] for _ in range(self.max_slots)]
+        # handoff idempotency: key -> slot for lanes installed by
+        # install_raw(); a re-sent handoff under a live key is a no-op
+        self._handoff_keys = {}
+        self._slot_handoff_key = {}
         # per-slot next write/read position (== tokens cached so far)
         self.positions = np.zeros(self.max_slots, np.int32)
         self.allocations = 0
@@ -164,6 +176,9 @@ class KVCachePool:
             raise ValueError(f"slot {slot} outside [0, {self.max_slots})")
         if slot in self._free:
             raise PageStateError(f"slot {slot} is already free (double free)")
+        key = self._slot_handoff_key.pop(slot, None)
+        if key is not None:
+            self._handoff_keys.pop(key, None)
         self.frees += 1
         self.positions[slot] = 0
         # zero the table row before returning pages: the freed lane's
@@ -210,6 +225,99 @@ class KVCachePool:
         """Install a single-lane prefill cache ([L, 1, nh, S, hd], compute
         dtype; chunked prefill's private cache) into ``slot``."""
         self.install_lane(k, v, lane=0, slot=slot, position=position)
+
+    # -- raw page export / install (disaggregated handoff) --------------
+    def export_lane(self, slot):
+        """Copy a live lane's pages as stored (storage-dtype bytes, no
+        dequantization: the transfer is bitwise) to host memory. Returns
+        ``(meta, frames)``: one ``bytes`` payload a logical page (k bytes,
+        then v bytes, fixed length), plus a trailing scales frame in int8
+        mode; ``meta`` holds what ``install_raw`` needs to rebuild the lane
+        bit for bit in another pool of the same geometry."""
+        if slot in self._free:
+            raise PageStateError(f"export from slot {slot} which is not allocated")
+        pages = self._lane_pages[slot]
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        # advanced indexing copies; the host copy never aliases the pool
+        lane_k = self.k[:, idx].to("cpu", copy=True)        # [L, n, nh, pt, hd]
+        lane_v = self.v[:, idx].to("cpu", copy=True)
+        frames = [_raw_bytes(lane_k[:, i]) + _raw_bytes(lane_v[:, i])
+                  for i in range(len(pages))]
+        meta = {
+            "pages": len(pages),
+            "position": int(self.positions[slot]),
+            "page_tokens": self.page_tokens,
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "page_nbytes": len(frames[0]) if frames else 0,
+            "scales": self.k_scale is not None,
+        }
+        if self.k_scale is not None:
+            frames.append(_raw_bytes(self.k_scale[:, slot].float())
+                          + _raw_bytes(self.v_scale[:, slot].float()))
+        return meta, frames
+
+    def install_raw(self, slot, meta, frames, handoff_key=None):
+        """Install exported pages into an allocated ``slot`` without
+        re-quantizing: the bytes land in storage as the sender stored
+        them, so the resumed lane equals the prefill replica's bit for
+        bit. Idempotent under ``handoff_key``: a re-sent handoff whose key
+        is live returns False and touches nothing; installing over a live
+        lane held under another key raises PageStateError."""
+        if slot in self._free:
+            raise PageStateError(f"install_raw into slot {slot} which is not allocated")
+        if handoff_key is not None and handoff_key in self._handoff_keys:
+            return False                                   # idempotent re-send
+        held = self._slot_handoff_key.get(slot)
+        if held is not None and held != handoff_key:
+            raise PageStateError(
+                f"slot {slot} already holds handoff key {held!r}; refusing "
+                f"install over a live lane under {handoff_key!r}")
+        n = int(meta["pages"])
+        if meta["kv_cache_dtype"] != self.kv_cache_dtype:
+            raise PageStateError(f"handoff dtype {meta['kv_cache_dtype']!r} does not "
+                                 f"match pool dtype {self.kv_cache_dtype!r}")
+        if n > len(self._lane_pages[slot]):
+            raise PageStateError(f"handoff carries {n} pages but slot {slot} has only "
+                                 f"{len(self._lane_pages[slot])} allocated")
+        position = int(meta["position"])
+        if not 0 <= position < self.max_seq_len:
+            raise ValueError(f"position {position} outside [0, {self.max_seq_len})")
+        pshape = (self.n_layers, self.n_heads, self.page_tokens, self.head_dim)
+        half = self.k.element_size() * math.prod(pshape)
+        for payload in frames[:n]:
+            if len(payload) != 2 * half:
+                raise PageStateError(f"page frame carries {len(payload)} bytes, the "
+                                     f"pool's pages need {2 * half}")
+        lane_k = torch.stack([_from_bytes(f[:half], self.k.dtype, pshape)
+                              for f in frames[:n]], dim=1)   # [L, n, nh, pt, hd]
+        lane_v = torch.stack([_from_bytes(f[half:], self.k.dtype, pshape)
+                              for f in frames[:n]], dim=1)
+        dest = torch.as_tensor(self._lane_pages[slot][:n], dtype=torch.long,
+                               device=self.device)
+        if meta.get("scales"):
+            if self.k_scale is None:
+                raise PageStateError("handoff carries scales but pool is not int8")
+            sshape = (self.n_layers, self.n_heads, 1, 1)
+            shalf = 4 * math.prod(sshape)
+            sbuf = frames[n]
+            if len(sbuf) != 2 * shalf:
+                raise PageStateError(f"scales frame carries {len(sbuf)} bytes, the "
+                                     f"pool's scales need {2 * shalf}")
+            self.k_scale[:, slot] = _from_bytes(sbuf[:shalf], torch.float32,
+                                                sshape).to(self.device)
+            self.v_scale[:, slot] = _from_bytes(sbuf[shalf:], torch.float32,
+                                                sshape).to(self.device)
+        self.k[:, dest] = lane_k.to(self.device)
+        self.v[:, dest] = lane_v.to(self.device)
+        self.positions[slot] = position
+        if handoff_key is not None:
+            self._handoff_keys[handoff_key] = slot
+            self._slot_handoff_key[slot] = handoff_key
+        return True
+
+    def handoff_slot(self, handoff_key):
+        """Slot currently holding ``handoff_key``, or None."""
+        return self._handoff_keys.get(handoff_key)
 
     def advance(self, slot):
         """Bump a slot's position after a decode step wrote its token

@@ -1,6 +1,7 @@
 """Serving metrics: TTFT, decode tokens per second, occupancy, the
 prefill/decode split, speculation's accept rate and tokens a step, the
-prefix cache's hit rate and reused tokens, and the spill tier.
+prefix cache's hit rate and reused tokens, the spill tier, the KV
+handoff's lifecycle; and ``RolloutMetrics``, the weight rollout's.
 
 Port of ``deepspeed_tpu/inference/serving/metrics.py``; the snapshot
 keys are the JAX package's, so ``Serving/PrefixHitRate`` and the rest
@@ -53,6 +54,13 @@ class ServingMetrics:
         self.page_fragmentation = 0.0
         self.batch_occupancy = 0.0
         self.queue_depth = 0
+        # disaggregated prefill/decode handoff (record_handoff; an event
+        # beyond these still counts, as an attribute of its own)
+        self.handoff_exports = 0
+        self.handoff_installs = 0
+        self.handoff_dup_installs = 0
+        self.handoff_resumes = 0
+        self.handoff_reaped = 0
         self._admitted_by_bucket = {}
         self._ttft_sum = 0.0
         self._ttft_count = 0
@@ -142,6 +150,15 @@ class ServingMetrics:
             self.draft_proposed += proposed_tokens
             self.draft_accepted += accepted_tokens
 
+    def record_handoff(self, event):
+        """One KV-handoff lifecycle event: 'export' (prefill side, pages
+        copied at retire), 'install' / 'dup_install' (decode side, pages
+        landed / an idempotent re-send dropped), 'resume' (a lane activated
+        from installed pages), 'reaped' (an orphaned claim freed by the TTL
+        reaper)."""
+        attr = f"handoff_{event}" if event.endswith("ed") else f"handoff_{event}s"
+        setattr(self, attr, getattr(self, attr, 0) + 1)
+
     def record_kv_pool_bytes(self, nbytes):
         self.kv_pool_bytes = int(nbytes)
 
@@ -216,6 +233,11 @@ class ServingMetrics:
             "page_fragmentation": self.page_fragmentation,
             "batch_occupancy": self.batch_occupancy,
             "queue_depth": self.queue_depth,
+            "handoff_exports": self.handoff_exports,
+            "handoff_installs": self.handoff_installs,
+            "handoff_dup_installs": self.handoff_dup_installs,
+            "handoff_resumes": self.handoff_resumes,
+            "handoff_reaped": self.handoff_reaped,
             "spill_hit_rate": self.spill_hit_rate(),
             "spill_corrupt_total": self.spill_corrupt_total,
             "uptime_s": time.monotonic() - self._started,
@@ -248,4 +270,87 @@ class ServingMetrics:
             lambda: {k: v for k, v in self.snapshot().items()
                      if isinstance(v, (int, float)) and not isinstance(v, bool)},
             help="live ServingMetrics.snapshot()")
+        return registry
+
+
+# rollout phases in escalation order; the phase gauge exports the index
+ROLLOUT_PHASES = ("idle", "staging", "canary", "promoting", "rolling_back",
+                  "committed")
+
+
+class RolloutMetrics:
+    """Counters and gauges of the weight-rollout state machine.
+
+    Per-rollout counters (shadow compares, shadow diffs, canary crashes)
+    reset when ``begin_rollout`` starts the next attempt, so a diff rate
+    describes this canary; fleet-lifetime counters (rollouts, rollbacks,
+    commits) only grow. Exported under ``Rollout/*``."""
+
+    def __init__(self):
+        self.phase = "idle"
+        self.target_tag = None
+        # lifetime
+        self.rollouts_total = 0
+        self.rollbacks_total = 0
+        self.commits_total = 0
+        # per rollout (reset by begin_rollout)
+        self.shadow_compared_total = 0
+        self.shadow_diff_total = 0
+        self.canary_crashes = 0
+        self.last_rollback_reason = None
+        self.last_recovery_s = None
+
+    def begin_rollout(self, tag):
+        self.rollouts_total += 1
+        self.target_tag = str(tag)
+        self.shadow_compared_total = 0
+        self.shadow_diff_total = 0
+        self.canary_crashes = 0
+        self.last_rollback_reason = None
+        self.last_recovery_s = None
+        self.set_phase("staging")
+
+    def set_phase(self, phase):
+        if phase not in ROLLOUT_PHASES:
+            raise ValueError(f"unknown rollout phase {phase!r}")
+        self.phase = phase
+
+    def record_shadow(self, matched):
+        self.shadow_compared_total += 1
+        if not matched:
+            self.shadow_diff_total += 1
+
+    def record_canary_crash(self):
+        self.canary_crashes += 1
+
+    def record_rollback(self, reason):
+        self.rollbacks_total += 1
+        self.last_rollback_reason = str(reason)
+
+    def record_commit(self):
+        self.commits_total += 1
+
+    def shadow_diff_rate(self):
+        if self.shadow_compared_total <= 0:
+            return 0.0
+        return self.shadow_diff_total / self.shadow_compared_total
+
+    def snapshot(self):
+        return {
+            "phase": float(ROLLOUT_PHASES.index(self.phase)),
+            "rollouts_total": float(self.rollouts_total),
+            "rollbacks_total": float(self.rollbacks_total),
+            "commits_total": float(self.commits_total),
+            "shadow_compared_total": float(self.shadow_compared_total),
+            "shadow_diff_total": float(self.shadow_diff_total),
+            "shadow_diff_rate": float(self.shadow_diff_rate()),
+            "canary_crashes": float(self.canary_crashes),
+            "last_recovery_s": float(self.last_recovery_s or 0.0),
+        }
+
+    def export_to(self, registry, name="Rollout"):
+        """Pull gauges under ``Rollout/*``, so the SLO engine and the fleet
+        collector can alert on a stuck or flapping rollout."""
+        registry.gauge_fn(name, self.snapshot,
+                          help="weight-rollout state machine counters")
         return registry

@@ -21,6 +21,7 @@ package keeps their Pallas counterparts; they are registered here too, and so is
 from deepspeed_tpu_torch.kernels.registry import (
     KERNEL_BACKENDS,
     KERNEL_NAMES,
+    export_gauges,
     host_launch_counts,
     kernel_for_backend,
     launch_counts,
@@ -44,6 +45,7 @@ __all__ = [
     "chunk_attend",
     "chunk_band_attend",
     "decode_attend",
+    "export_gauges",
     "host_launch_counts",
     "kernel_for_backend",
     "launch_counts",

@@ -76,3 +76,11 @@ def registry_snapshot():
                    "replaces": KERNEL_SOURCES[name][1],
                    "launches": _launches[name]}
             for name in KERNEL_NAMES}
+
+
+def export_gauges(registry):
+    """Each kernel's launch count as a pull gauge on a telemetry registry
+    (``Kernels/<name>/launches``), rendered at every ``/metrics`` scrape."""
+    registry.gauge_fn("Kernels",
+                      lambda: {f"{name}/launches": float(n) for name, n in _launches.items()},
+                      help="launches of the port's hand-written kernels")

@@ -19,7 +19,12 @@ workers run under ``WorkerSupervisor`` (``launcher/supervisor.py``) as
 one group: SIGTERM and SIGINT are forwarded to every worker, a worker
 that dies takes the group down and, with ``--max_restarts``, the group is
 restarted (no backoff after a preemption, exit 99); the group's exit code
-is propagated.
+is propagated. A serving fleet runs its replicas the same way:
+``--replica_port P`` (worker i binds P + i) and ``--replica_config`` export
+``DSTPU_REPLICA_PORT`` / ``DSTPU_REPLICA_CONFIG`` to each worker
+(``python -m deepspeed_tpu_torch.inference.serving.replica`` reads them),
+and ``--collector_port`` runs a ``FleetCollector`` beside the supervisor
+over the workers' telemetry endpoints.
 
     python -m deepspeed_tpu_torch.launcher.launch --world_info=<b64> --node_rank=0 train.py ...
 """
@@ -32,9 +37,6 @@ from deepspeed_tpu_torch.launcher.runner import decode_world_info
 from deepspeed_tpu_torch.launcher.supervisor import WorkerSupervisor
 from deepspeed_tpu_torch.utils.distributed import TORCH_DISTRIBUTED_DEFAULT_PORT
 from deepspeed_tpu_torch.utils.logging import logger
-
-# the fleet's options of the JAX launcher: the serving fleet is not ported
-UNPORTED_OPTIONS = ("--replica_port", "--replica_config")
 
 
 def parse_args(args=None):
@@ -63,16 +65,24 @@ def parse_args(args=None):
                         help="Fixed port of the WORKERS' telemetry endpoints: local "
                              "worker i binds this port + i (exported as "
                              "DSTPU_TELEMETRY_PORT; survives restarts)")
+    parser.add_argument("--replica_port", default=None, type=int,
+                        help="Fixed port of the SERVING replicas' request sockets: "
+                             "local worker i binds this port + i (exported as "
+                             "DSTPU_REPLICA_PORT; survives restarts so a fleet "
+                             "router's endpoint list never goes stale)")
+    parser.add_argument("--replica_config", default=None, type=str,
+                        help="Replica config JSON path (exported as "
+                             "DSTPU_REPLICA_CONFIG for inference/serving/replica.py "
+                             "workers)")
+    parser.add_argument("--collector_port", default=None, type=int,
+                        help="Run a FleetCollector next to the supervisor, serving "
+                             "/fleet/metrics, /fleet/trace and /fleet/snapshot on "
+                             "this port (0 = ephemeral). Scrapes the workers' "
+                             "endpoints (requires --worker_telemetry_port) and "
+                             "merges the supervisor's own restart instants")
     parser.add_argument("training_script", type=str)
     parser.add_argument("training_script_args", nargs=argparse.REMAINDER)
-    argv = sys.argv[1:] if args is None else list(args)
-    # options before the script only: the script's own arguments are its own
-    script_at = next((i for i, a in enumerate(argv) if not a.startswith("-")), len(argv))
-    for opt in UNPORTED_OPTIONS:
-        if any(a == opt or a.startswith(opt + "=") for a in argv[:script_at]):
-            raise NotImplementedError(f"launch {opt} is not ported to deepspeed_tpu_torch "
-                                      "yet (the serving fleet; ROADMAP.md, queue 1)")
-    return parser.parse_args(argv)
+    return parser.parse_args(sys.argv[1:] if args is None else list(args))
 
 
 def mpi_node_rank():
@@ -141,10 +151,45 @@ def main(args=None):
         heartbeat_timeout_s=args.heartbeat_timeout_s,
         http_port=args.telemetry_port,
         worker_port=args.worker_telemetry_port,
+        replica_port=args.replica_port,
+        replica_config=args.replica_config,
         rank=int(envs[0]["RANK"]),
         log=lambda msg: logger.warning(f"launch[{node_rank}]: {msg}"),
     )
-    sys.exit(supervisor.run())
+    collector = None
+    if args.collector_port is not None:
+        collector = _start_collector(supervisor, args.collector_port, node_rank)
+    try:
+        rc = supervisor.run()
+    finally:
+        if collector is not None:
+            collector.stop()
+    sys.exit(rc)
+
+
+def _start_collector(supervisor, port, node_rank):
+    """A FleetCollector over the supervised workers' telemetry endpoints,
+    with the supervisor's own lifecycle instants and liveness gauges
+    merged in, served on ``port``."""
+    from deepspeed_tpu_torch import telemetry
+
+    collector = telemetry.FleetCollector()
+    for i, url in enumerate(supervisor.worker_endpoints or []):
+        collector.add_endpoint(rank=supervisor.rank + i, url=url)
+    if supervisor.worker_endpoints is None:
+        logger.warning("launch: --collector_port without --worker_telemetry_port: the "
+                       "collector has no worker endpoint to scrape (serving "
+                       "supervisor-side telemetry only)")
+    # arm the launcher-side tracer so the supervisor's lifecycle instants
+    # (worker/restart, worker/exit) are recorded, then merge them and the
+    # liveness gauges into the fleet view
+    telemetry.configure(True)
+    telemetry.get_tracer().set_process_info(rank=-1, role="supervisor")
+    supervisor.export_gauges(telemetry.get_registry())
+    collector.attach_local(telemetry.get_tracer(), telemetry.get_registry())
+    srv = collector.serve(port=port)
+    logger.info(f"launch[{node_rank}]: fleet collector at {srv.url}/fleet/metrics")
+    return collector
 
 
 if __name__ == "__main__":

@@ -72,6 +72,11 @@ PREEMPT_SAVE_DIR_ENV = "DSTPU_PREEMPT_SAVE_DIR"
 # block leaves http_port null binds this port instead, so the fleet
 # collector knows where to scrape it.
 TELEMETRY_PORT_ENV = "DSTPU_TELEMETRY_PORT"
+# Serving-replica socket port and config path (duplicated in
+# inference/serving/replica.py): a supervised serving replica binds a
+# fixed port, so the router's endpoint list survives restarts.
+REPLICA_PORT_ENV = "DSTPU_REPLICA_PORT"
+REPLICA_CONFIG_ENV = "DSTPU_REPLICA_CONFIG"
 
 # Exit classes (WorkerSupervisor.exit_history entries).
 CLASS_CLEAN = "clean"
@@ -211,7 +216,8 @@ class WorkerSupervisor:
                  max_backoff_s=30.0, heartbeat_timeout_s=0.0,
                  heartbeat_file=None, poll_interval_s=0.05, term_grace_s=5.0,
                  fatal_exit_codes=(EXIT_POISONED,), log=None, http_port=None,
-                 worker_port=None, breaker=None, rank=None, local_envs=None):
+                 worker_port=None, breaker=None, rank=None, local_envs=None,
+                 replica_port=None, replica_config=None):
         self.cmd = list(cmd)
         self.env = dict(env if env is not None else os.environ)
         self.local_envs = [dict(e) for e in (local_envs or [{}])]
@@ -240,6 +246,12 @@ class WorkerSupervisor:
         # fleet collector across restarts (an ephemeral port would move);
         # worker i binds worker_port + i
         self.worker_port = worker_port
+        # a serving replica keeps a fixed request socket across restarts
+        # too: worker i binds replica_port + i, and reads its spec from
+        # replica_config
+        self.replica_port = replica_port
+        if replica_config is not None:
+            self.env[REPLICA_CONFIG_ENV] = str(replica_config)
 
         # crash-loop circuit breaker (fleet.breaker): accepts a built
         # CrashLoopBreaker, a BreakerConfig-shaped object/dict, or None
@@ -270,6 +282,8 @@ class WorkerSupervisor:
             env[HEARTBEAT_FILE_ENV] = self.heartbeat_files[i]
         if self.worker_port is not None:
             env[TELEMETRY_PORT_ENV] = str(int(self.worker_port) + i)
+        if self.replica_port is not None:
+            env[REPLICA_PORT_ENV] = str(int(self.replica_port) + i)
         return env
 
     # -- lifecycle -----------------------------------------------------
@@ -489,6 +503,16 @@ class WorkerSupervisor:
         if self.worker_port is None:
             return None
         return [f"http://127.0.0.1:{int(self.worker_port) + i}"
+                for i in range(len(self.local_envs))]
+
+    @property
+    def replica_endpoints(self):
+        """``(host, port)`` of each supervised serving replica's request
+        socket (a Router's endpoint list), worker i at ``replica_port +
+        i``; None when the workers are not serving replicas."""
+        if self.replica_port is None:
+            return None
+        return [("127.0.0.1", int(self.replica_port) + i)
                 for i in range(len(self.local_envs))]
 
     def export_gauges(self, registry):

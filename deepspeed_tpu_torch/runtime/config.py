@@ -15,10 +15,11 @@ Honoured sections: ``optimizer`` (Adam, AdamW, Lamb, SGD), ``scheduler``
 ``steps_per_print``, ``seed``, ``prescale_gradients``,
 ``gradient_predivide_factor``, ``checkpoint`` (tag validation and the
 storage keys of ``runtime/checkpoint/``), ``telemetry`` (the copied
-``DeepSpeedTelemetryConfig``) and ``elasticity``, which overrides the
-batch parameters before the triple is inferred. A config that enables a section or a
-switch the port does not run yet raises ``NotImplementedError`` naming
-it; nothing is silently ignored.
+``DeepSpeedTelemetryConfig``), ``serving``, ``fleet`` (the serving
+fleet's router, replicas and their sub-blocks) and ``elasticity``,
+which overrides the batch parameters before the triple is inferred. A
+config that enables a section or a switch the port does not run yet
+raises ``NotImplementedError`` naming it; nothing is silently ignored.
 """
 
 import json
@@ -46,6 +47,116 @@ from deepspeed_tpu_torch.elasticity.constants import (
 )
 from deepspeed_tpu_torch.runtime.checkpoint import CheckpointConfig
 from deepspeed_tpu_torch.runtime.constants import (
+    FLEET,
+    FLEET_AFFINITY_PREFIX_TOKENS,
+    FLEET_AFFINITY_PREFIX_TOKENS_DEFAULT,
+    FLEET_ATTEMPT_TIMEOUT,
+    FLEET_ATTEMPT_TIMEOUT_DEFAULT,
+    FLEET_AUTOSCALE,
+    FLEET_AUTOSCALE_COOLDOWN,
+    FLEET_AUTOSCALE_COOLDOWN_DEFAULT,
+    FLEET_AUTOSCALE_DOWN_AFTER,
+    FLEET_AUTOSCALE_DOWN_AFTER_DEFAULT,
+    FLEET_AUTOSCALE_ENABLED,
+    FLEET_AUTOSCALE_MAX_REPLICAS,
+    FLEET_AUTOSCALE_MAX_REPLICAS_DEFAULT,
+    FLEET_AUTOSCALE_MIN_REPLICAS,
+    FLEET_AUTOSCALE_MIN_REPLICAS_DEFAULT,
+    FLEET_AUTOSCALE_POLL_INTERVAL,
+    FLEET_AUTOSCALE_POLL_INTERVAL_DEFAULT,
+    FLEET_AUTOSCALE_UP_AFTER,
+    FLEET_AUTOSCALE_UP_AFTER_DEFAULT,
+    FLEET_AUTOSCALE_WARM_SPARES,
+    FLEET_AUTOSCALE_WARM_SPARES_DEFAULT,
+    FLEET_BREAKER,
+    FLEET_BREAKER_COOLDOWN,
+    FLEET_BREAKER_COOLDOWN_DEFAULT,
+    FLEET_BREAKER_ENABLED,
+    FLEET_BREAKER_THRESHOLD,
+    FLEET_BREAKER_THRESHOLD_DEFAULT,
+    FLEET_BREAKER_WINDOW,
+    FLEET_BREAKER_WINDOW_DEFAULT,
+    FLEET_DEGRADE,
+    FLEET_DEGRADE_ENABLED,
+    FLEET_DEGRADE_ESCALATE_AFTER,
+    FLEET_DEGRADE_ESCALATE_AFTER_DEFAULT,
+    FLEET_DEGRADE_PRESSURE_QUEUE_FRAC,
+    FLEET_DEGRADE_PRESSURE_QUEUE_FRAC_DEFAULT,
+    FLEET_DEGRADE_RECOVER_AFTER,
+    FLEET_DEGRADE_RECOVER_AFTER_DEFAULT,
+    FLEET_DEGRADE_SHED_CLASSES,
+    FLEET_DEGRADE_SHED_CLASSES_DEFAULT,
+    FLEET_DRAIN_TIMEOUT,
+    FLEET_DRAIN_TIMEOUT_DEFAULT,
+    FLEET_ENABLED,
+    FLEET_HANDOFF,
+    FLEET_HANDOFF_ATTEMPT_TIMEOUT,
+    FLEET_HANDOFF_ATTEMPT_TIMEOUT_DEFAULT,
+    FLEET_HANDOFF_BACKOFF,
+    FLEET_HANDOFF_BACKOFF_DEFAULT,
+    FLEET_HANDOFF_BACKOFF_MAX,
+    FLEET_HANDOFF_BACKOFF_MAX_DEFAULT,
+    FLEET_HANDOFF_CLAIM_TTL,
+    FLEET_HANDOFF_CLAIM_TTL_DEFAULT,
+    FLEET_HANDOFF_ENABLED,
+    FLEET_HANDOFF_MAX_FRAME_BYTES,
+    FLEET_HANDOFF_MAX_FRAME_BYTES_DEFAULT,
+    FLEET_HANDOFF_RESUME_TTL,
+    FLEET_HANDOFF_RESUME_TTL_DEFAULT,
+    FLEET_HANDOFF_RETRIES,
+    FLEET_HANDOFF_RETRIES_DEFAULT,
+    FLEET_HEALTH_TTL,
+    FLEET_HEALTH_TTL_DEFAULT,
+    FLEET_MAX_INFLIGHT_TOKENS,
+    FLEET_MAX_INFLIGHT_TOKENS_DEFAULT,
+    FLEET_REPLICAS,
+    FLEET_REPLICAS_DEFAULT,
+    FLEET_RETRY_BACKOFF,
+    FLEET_RETRY_BACKOFF_DEFAULT,
+    FLEET_RETRY_BACKOFF_MAX,
+    FLEET_RETRY_BACKOFF_MAX_DEFAULT,
+    FLEET_RETRY_BUDGET,
+    FLEET_RETRY_BUDGET_DEFAULT,
+    FLEET_ROLES,
+    FLEET_ROLES_DECODE_REPLICAS,
+    FLEET_ROLES_DECODE_REPLICAS_DEFAULT,
+    FLEET_ROLES_ENABLED,
+    FLEET_ROLES_MAX_DECODE_REPLICAS,
+    FLEET_ROLES_MAX_DECODE_REPLICAS_DEFAULT,
+    FLEET_ROLES_MAX_PREFILL_REPLICAS,
+    FLEET_ROLES_MAX_PREFILL_REPLICAS_DEFAULT,
+    FLEET_ROLES_PREFILL_REPLICAS,
+    FLEET_ROLES_PREFILL_REPLICAS_DEFAULT,
+    FLEET_ROLLOUT,
+    FLEET_ROLLOUT_CANARY_FRACTION,
+    FLEET_ROLLOUT_CANARY_FRACTION_DEFAULT,
+    FLEET_ROLLOUT_CANARY_HOLD,
+    FLEET_ROLLOUT_CANARY_HOLD_DEFAULT,
+    FLEET_ROLLOUT_CANARY_REPLICAS,
+    FLEET_ROLLOUT_CANARY_REPLICAS_DEFAULT,
+    FLEET_ROLLOUT_ENABLED,
+    FLEET_ROLLOUT_MAX_CANARY_CRASHES,
+    FLEET_ROLLOUT_MAX_CANARY_CRASHES_DEFAULT,
+    FLEET_ROLLOUT_MIN_CANARY_REQUESTS,
+    FLEET_ROLLOUT_MIN_CANARY_REQUESTS_DEFAULT,
+    FLEET_ROLLOUT_MIN_SHADOW_COMPARED,
+    FLEET_ROLLOUT_MIN_SHADOW_COMPARED_DEFAULT,
+    FLEET_ROLLOUT_POLL_INTERVAL,
+    FLEET_ROLLOUT_POLL_INTERVAL_DEFAULT,
+    FLEET_ROLLOUT_RECOVERY_BOUND,
+    FLEET_ROLLOUT_RECOVERY_BOUND_DEFAULT,
+    FLEET_ROLLOUT_ROLLBACK_ON,
+    FLEET_ROLLOUT_ROLLBACK_ON_DEFAULT,
+    FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD,
+    FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD_DEFAULT,
+    FLEET_ROLLOUT_SHADOW_MAX_PENDING,
+    FLEET_ROLLOUT_SHADOW_MAX_PENDING_DEFAULT,
+    FLEET_ROLLOUT_SHADOW_SAMPLE_RATE,
+    FLEET_ROLLOUT_SHADOW_SAMPLE_RATE_DEFAULT,
+    FLEET_SATURATION_QUEUE_DEPTH,
+    FLEET_SATURATION_QUEUE_DEPTH_DEFAULT,
+    FLEET_SHED_RETRY_AFTER,
+    FLEET_SHED_RETRY_AFTER_DEFAULT,
     BFLOAT16,
     BFLOAT16_ALIAS,
     BFLOAT16_ENABLED,
@@ -455,6 +566,489 @@ def get_serving_config(param_dict):
         kv_pool_tokens=kv_pool_tokens)
 
 
+def _get_fleet_autoscale(params):
+    """fleet.autoscale sub-block: the SLO-driven control loop. Opt-in
+    by presence, like every fleet sub-block."""
+    from deepspeed_tpu_torch.inference.serving.config import AutoscaleConfig
+
+    section = params.get(FLEET_AUTOSCALE, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_AUTOSCALE} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_AUTOSCALE_ENABLED, section is not None))
+    ints = (
+        (FLEET_AUTOSCALE_MIN_REPLICAS, FLEET_AUTOSCALE_MIN_REPLICAS_DEFAULT,
+         1, "scale-down floor"),
+        (FLEET_AUTOSCALE_MAX_REPLICAS, FLEET_AUTOSCALE_MAX_REPLICAS_DEFAULT,
+         1, "scale-up ceiling"),
+        (FLEET_AUTOSCALE_WARM_SPARES, FLEET_AUTOSCALE_WARM_SPARES_DEFAULT,
+         0, "pre-spawned replicas kept out of rotation"),
+    )
+    ivals = {}
+    for key, default, floor, what in ints:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, int) or isinstance(v, bool) or v < floor:
+            raise ValueError(
+                f"fleet.{FLEET_AUTOSCALE}.{key} must be an int >= {floor} "
+                f"({what}), got {v!r}"
+            )
+        ivals[key] = v
+    if ivals[FLEET_AUTOSCALE_MIN_REPLICAS] > ivals[FLEET_AUTOSCALE_MAX_REPLICAS]:
+        raise ValueError(
+            f"fleet.{FLEET_AUTOSCALE}.{FLEET_AUTOSCALE_MIN_REPLICAS}="
+            f"{ivals[FLEET_AUTOSCALE_MIN_REPLICAS]} must not exceed "
+            f"{FLEET_AUTOSCALE_MAX_REPLICAS}="
+            f"{ivals[FLEET_AUTOSCALE_MAX_REPLICAS]}"
+        )
+    numbers = (
+        (FLEET_AUTOSCALE_UP_AFTER, FLEET_AUTOSCALE_UP_AFTER_DEFAULT,
+         "sustained-alert window before scale-up"),
+        (FLEET_AUTOSCALE_DOWN_AFTER, FLEET_AUTOSCALE_DOWN_AFTER_DEFAULT,
+         "alert-quiet window before scale-down"),
+        (FLEET_AUTOSCALE_COOLDOWN, FLEET_AUTOSCALE_COOLDOWN_DEFAULT,
+         "minimum gap between scaling actions"),
+        (FLEET_AUTOSCALE_POLL_INTERVAL, FLEET_AUTOSCALE_POLL_INTERVAL_DEFAULT,
+         "control-loop tick interval"),
+    )
+    fvals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{FLEET_AUTOSCALE}.{key} must be a number >= 0 "
+                f"({what}), got {v!r}"
+            )
+        fvals[key] = float(v)
+    return AutoscaleConfig(
+        enabled=enabled,
+        min_replicas=ivals[FLEET_AUTOSCALE_MIN_REPLICAS],
+        max_replicas=ivals[FLEET_AUTOSCALE_MAX_REPLICAS],
+        warm_spares=ivals[FLEET_AUTOSCALE_WARM_SPARES],
+        up_after_s=fvals[FLEET_AUTOSCALE_UP_AFTER],
+        down_after_s=fvals[FLEET_AUTOSCALE_DOWN_AFTER],
+        cooldown_s=fvals[FLEET_AUTOSCALE_COOLDOWN],
+        poll_interval_s=fvals[FLEET_AUTOSCALE_POLL_INTERVAL],
+    )
+
+
+def _get_fleet_degrade(params):
+    """fleet.degrade sub-block: the degraded-mode ladder."""
+    from deepspeed_tpu_torch.inference.serving.config import DegradeConfig
+
+    section = params.get(FLEET_DEGRADE, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_DEGRADE} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_DEGRADE_ENABLED, section is not None))
+    numbers = (
+        (FLEET_DEGRADE_ESCALATE_AFTER, FLEET_DEGRADE_ESCALATE_AFTER_DEFAULT,
+         "sustained pressure before climbing one rung"),
+        (FLEET_DEGRADE_RECOVER_AFTER, FLEET_DEGRADE_RECOVER_AFTER_DEFAULT,
+         "sustained quiet before descending one rung"),
+    )
+    fvals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{FLEET_DEGRADE}.{key} must be a number >= 0 "
+                f"({what}), got {v!r}"
+            )
+        fvals[key] = float(v)
+    frac = get_scalar_param(sub, FLEET_DEGRADE_PRESSURE_QUEUE_FRAC,
+                            FLEET_DEGRADE_PRESSURE_QUEUE_FRAC_DEFAULT)
+    if not isinstance(frac, (int, float)) or isinstance(frac, bool) \
+            or not 0 < frac <= 1:
+        raise ValueError(
+            f"fleet.{FLEET_DEGRADE}.{FLEET_DEGRADE_PRESSURE_QUEUE_FRAC} "
+            f"must be a number in (0, 1] (queue-depth fraction that counts "
+            f"as pressure), got {frac!r}"
+        )
+    shed = sub.get(FLEET_DEGRADE_SHED_CLASSES,
+                   FLEET_DEGRADE_SHED_CLASSES_DEFAULT)
+    if not isinstance(shed, (list, tuple)) or any(
+            not isinstance(c, str) or not c for c in shed):
+        raise ValueError(
+            f"fleet.{FLEET_DEGRADE}.{FLEET_DEGRADE_SHED_CLASSES} must be a "
+            f"list of request-class names (empty = every class except "
+            f"'default'), got {shed!r}"
+        )
+    return DegradeConfig(
+        enabled=enabled,
+        escalate_after_s=fvals[FLEET_DEGRADE_ESCALATE_AFTER],
+        recover_after_s=fvals[FLEET_DEGRADE_RECOVER_AFTER],
+        pressure_queue_frac=float(frac),
+        shed_classes=tuple(shed),
+    )
+
+
+def _get_fleet_breaker(params):
+    """fleet.breaker sub-block: per-replica crash-loop circuit breakers."""
+    from deepspeed_tpu_torch.inference.serving.config import BreakerConfig
+
+    section = params.get(FLEET_BREAKER, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_BREAKER} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_BREAKER_ENABLED, section is not None))
+    threshold = get_scalar_param(sub, FLEET_BREAKER_THRESHOLD,
+                                 FLEET_BREAKER_THRESHOLD_DEFAULT)
+    if not isinstance(threshold, int) or isinstance(threshold, bool) \
+            or threshold < 1:
+        raise ValueError(
+            f"fleet.{FLEET_BREAKER}.{FLEET_BREAKER_THRESHOLD} must be an "
+            f"int >= 1 (failure exits in the window that open the "
+            f"breaker), got {threshold!r}"
+        )
+    numbers = (
+        (FLEET_BREAKER_WINDOW, FLEET_BREAKER_WINDOW_DEFAULT,
+         "sliding failure-count window"),
+        (FLEET_BREAKER_COOLDOWN, FLEET_BREAKER_COOLDOWN_DEFAULT,
+         "quarantine before the half-open probe restart"),
+    )
+    fvals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{FLEET_BREAKER}.{key} must be a number >= 0 "
+                f"({what}), got {v!r}"
+            )
+        fvals[key] = float(v)
+    return BreakerConfig(
+        enabled=enabled,
+        threshold=threshold,
+        window_s=fvals[FLEET_BREAKER_WINDOW],
+        cooldown_s=fvals[FLEET_BREAKER_COOLDOWN],
+    )
+
+
+def _get_fleet_rollout(params):
+    """fleet.rollout sub-block: zero-downtime weight rollout."""
+    from deepspeed_tpu_torch.inference.serving.config import RolloutConfig
+
+    section = params.get(FLEET_ROLLOUT, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_ROLLOUT} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_ROLLOUT_ENABLED, section is not None))
+    fractions = (
+        (FLEET_ROLLOUT_CANARY_FRACTION, FLEET_ROLLOUT_CANARY_FRACTION_DEFAULT,
+         "traffic slice routed to the canary generation"),
+        (FLEET_ROLLOUT_SHADOW_SAMPLE_RATE,
+         FLEET_ROLLOUT_SHADOW_SAMPLE_RATE_DEFAULT,
+         "completed-request fraction replayed as shadow traffic"),
+        (FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD,
+         FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD_DEFAULT,
+         "shadow diff rate above which the canary rolls back"),
+    )
+    fracs = {}
+    for key, default, what in fractions:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                or not 0 <= v <= 1:
+            raise ValueError(
+                f"fleet.{FLEET_ROLLOUT}.{key} must be a number in [0, 1] "
+                f"({what}), got {v!r}"
+            )
+        fracs[key] = float(v)
+    ints = (
+        (FLEET_ROLLOUT_CANARY_REPLICAS, FLEET_ROLLOUT_CANARY_REPLICAS_DEFAULT,
+         1, "replicas booted on the new weights for the canary"),
+        (FLEET_ROLLOUT_SHADOW_MAX_PENDING,
+         FLEET_ROLLOUT_SHADOW_MAX_PENDING_DEFAULT, 1,
+         "bounded shadow backlog"),
+        (FLEET_ROLLOUT_MIN_CANARY_REQUESTS,
+         FLEET_ROLLOUT_MIN_CANARY_REQUESTS_DEFAULT, 0,
+         "canary-routed attempts required before promotion"),
+        (FLEET_ROLLOUT_MIN_SHADOW_COMPARED,
+         FLEET_ROLLOUT_MIN_SHADOW_COMPARED_DEFAULT, 0,
+         "shadow compares required before promotion"),
+        (FLEET_ROLLOUT_MAX_CANARY_CRASHES,
+         FLEET_ROLLOUT_MAX_CANARY_CRASHES_DEFAULT, 0,
+         "canary process deaths that trigger rollback"),
+    )
+    ivals = {}
+    for key, default, lo, what in ints:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, int) or isinstance(v, bool) or v < lo:
+            raise ValueError(
+                f"fleet.{FLEET_ROLLOUT}.{key} must be an int >= {lo} "
+                f"({what}), got {v!r}"
+            )
+        ivals[key] = v
+    numbers = (
+        (FLEET_ROLLOUT_CANARY_HOLD, FLEET_ROLLOUT_CANARY_HOLD_DEFAULT,
+         "minimum canary soak before promotion"),
+        (FLEET_ROLLOUT_POLL_INTERVAL, FLEET_ROLLOUT_POLL_INTERVAL_DEFAULT,
+         "manifest poll cadence"),
+        (FLEET_ROLLOUT_RECOVERY_BOUND, FLEET_ROLLOUT_RECOVERY_BOUND_DEFAULT,
+         "rollback recovery deadline"),
+    )
+    fvals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{FLEET_ROLLOUT}.{key} must be a number >= 0 "
+                f"({what}), got {v!r}"
+            )
+        fvals[key] = float(v)
+    rollback_on = sub.get(FLEET_ROLLOUT_ROLLBACK_ON,
+                          FLEET_ROLLOUT_ROLLBACK_ON_DEFAULT)
+    valid = set(FLEET_ROLLOUT_ROLLBACK_ON_DEFAULT)
+    if not isinstance(rollback_on, (list, tuple)) or any(
+            trigger not in valid for trigger in rollback_on):
+        raise ValueError(
+            f"fleet.{FLEET_ROLLOUT}.{FLEET_ROLLOUT_ROLLBACK_ON} must be a "
+            f"list drawn from {sorted(valid)}, got {rollback_on!r}"
+        )
+    return RolloutConfig(
+        enabled=enabled,
+        canary_fraction=fracs[FLEET_ROLLOUT_CANARY_FRACTION],
+        canary_replicas=ivals[FLEET_ROLLOUT_CANARY_REPLICAS],
+        shadow_sample_rate=fracs[FLEET_ROLLOUT_SHADOW_SAMPLE_RATE],
+        shadow_max_pending=ivals[FLEET_ROLLOUT_SHADOW_MAX_PENDING],
+        canary_hold_s=fvals[FLEET_ROLLOUT_CANARY_HOLD],
+        min_canary_requests=ivals[FLEET_ROLLOUT_MIN_CANARY_REQUESTS],
+        min_shadow_compared=ivals[FLEET_ROLLOUT_MIN_SHADOW_COMPARED],
+        shadow_diff_threshold=fracs[FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD],
+        max_canary_crashes=ivals[FLEET_ROLLOUT_MAX_CANARY_CRASHES],
+        rollback_on=tuple(rollback_on),
+        poll_interval_s=fvals[FLEET_ROLLOUT_POLL_INTERVAL],
+        recovery_bound_s=fvals[FLEET_ROLLOUT_RECOVERY_BOUND],
+    )
+
+
+def _get_fleet_roles(params):
+    """fleet.roles sub-block: disaggregated prefill/decode role pools."""
+    from deepspeed_tpu_torch.inference.serving.config import RolesConfig
+
+    section = params.get(FLEET_ROLES, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_ROLES} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_ROLES_ENABLED, section is not None))
+    ints = (
+        (FLEET_ROLES_PREFILL_REPLICAS, FLEET_ROLES_PREFILL_REPLICAS_DEFAULT,
+         "replicas booted into the prefill pool"),
+        (FLEET_ROLES_DECODE_REPLICAS, FLEET_ROLES_DECODE_REPLICAS_DEFAULT,
+         "replicas booted into the decode pool"),
+        (FLEET_ROLES_MAX_PREFILL_REPLICAS,
+         FLEET_ROLES_MAX_PREFILL_REPLICAS_DEFAULT,
+         "autoscaler ceiling for the prefill pool"),
+        (FLEET_ROLES_MAX_DECODE_REPLICAS,
+         FLEET_ROLES_MAX_DECODE_REPLICAS_DEFAULT,
+         "autoscaler ceiling for the decode pool"),
+    )
+    ivals = {}
+    for key, default, what in ints:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            raise ValueError(
+                f"fleet.{FLEET_ROLES}.{key} must be an int >= 1 "
+                f"({what}), got {v!r}"
+            )
+        ivals[key] = v
+    for key, floor_key in (
+            (FLEET_ROLES_MAX_PREFILL_REPLICAS, FLEET_ROLES_PREFILL_REPLICAS),
+            (FLEET_ROLES_MAX_DECODE_REPLICAS, FLEET_ROLES_DECODE_REPLICAS)):
+        if ivals[key] < ivals[floor_key]:
+            raise ValueError(
+                f"fleet.{FLEET_ROLES}.{key} must be >= "
+                f"fleet.{FLEET_ROLES}.{floor_key} "
+                f"({ivals[key]} < {ivals[floor_key]})"
+            )
+    return RolesConfig(
+        enabled=enabled,
+        prefill_replicas=ivals[FLEET_ROLES_PREFILL_REPLICAS],
+        decode_replicas=ivals[FLEET_ROLES_DECODE_REPLICAS],
+        max_prefill_replicas=ivals[FLEET_ROLES_MAX_PREFILL_REPLICAS],
+        max_decode_replicas=ivals[FLEET_ROLES_MAX_DECODE_REPLICAS],
+    )
+
+
+def _get_fleet_handoff(params):
+    """fleet.handoff sub-block: crash-safe KV-page transfer."""
+    from deepspeed_tpu_torch.inference.serving.config import HandoffConfig
+
+    section = params.get(FLEET_HANDOFF, None)
+    if section is not None and not isinstance(section, dict):
+        raise ValueError(
+            f"fleet.{FLEET_HANDOFF} must be a dict, "
+            f"got {type(section).__name__}"
+        )
+    sub = section or {}
+    enabled = bool(get_scalar_param(sub, FLEET_HANDOFF_ENABLED, section is not None))
+    max_frame = get_scalar_param(sub, FLEET_HANDOFF_MAX_FRAME_BYTES,
+                                 FLEET_HANDOFF_MAX_FRAME_BYTES_DEFAULT)
+    if not isinstance(max_frame, int) or isinstance(max_frame, bool) \
+            or max_frame < 1:
+        raise ValueError(
+            f"fleet.{FLEET_HANDOFF}.{FLEET_HANDOFF_MAX_FRAME_BYTES} must be "
+            f"an int >= 1 (binary page-frame size cap), got {max_frame!r}"
+        )
+    retries = get_scalar_param(sub, FLEET_HANDOFF_RETRIES,
+                               FLEET_HANDOFF_RETRIES_DEFAULT)
+    if not isinstance(retries, int) or isinstance(retries, bool) or retries < 1:
+        raise ValueError(
+            f"fleet.{FLEET_HANDOFF}.{FLEET_HANDOFF_RETRIES} must be an "
+            f"int >= 1 (total transfer attempts), got {retries!r}"
+        )
+    numbers = (
+        (FLEET_HANDOFF_ATTEMPT_TIMEOUT, FLEET_HANDOFF_ATTEMPT_TIMEOUT_DEFAULT,
+         "per-attempt socket deadline"),
+        (FLEET_HANDOFF_BACKOFF, FLEET_HANDOFF_BACKOFF_DEFAULT,
+         "base retry backoff"),
+        (FLEET_HANDOFF_BACKOFF_MAX, FLEET_HANDOFF_BACKOFF_MAX_DEFAULT,
+         "retry backoff cap"),
+        (FLEET_HANDOFF_CLAIM_TTL, FLEET_HANDOFF_CLAIM_TTL_DEFAULT,
+         "orphaned claim reap deadline"),
+        (FLEET_HANDOFF_RESUME_TTL, FLEET_HANDOFF_RESUME_TTL_DEFAULT,
+         "installed-but-unresumed reap deadline"),
+    )
+    fvals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(sub, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{FLEET_HANDOFF}.{key} must be a number >= 0 "
+                f"({what}), got {v!r}"
+            )
+        fvals[key] = float(v)
+    return HandoffConfig(
+        enabled=enabled,
+        max_frame_bytes=max_frame,
+        attempt_timeout_s=fvals[FLEET_HANDOFF_ATTEMPT_TIMEOUT],
+        retries=retries,
+        backoff_s=fvals[FLEET_HANDOFF_BACKOFF],
+        backoff_max_s=fvals[FLEET_HANDOFF_BACKOFF_MAX],
+        claim_ttl_s=fvals[FLEET_HANDOFF_CLAIM_TTL],
+        resume_ttl_s=fvals[FLEET_HANDOFF_RESUME_TTL],
+    )
+
+
+def get_fleet_config(param_dict):
+    """fleet: routing front-door over N serving replicas
+    (inference/serving/router.py, replica.py). Opt-in like the serving
+    block: present enables (unless it sets "enabled": false); absent
+    means no fleet policy is built. Shape-only validation — endpoint
+    health and routability are runtime concerns of the Router."""
+    from deepspeed_tpu_torch.inference.serving.config import FleetConfig
+
+    section = param_dict.get(FLEET, None)
+    params = section or {}
+    enabled = bool(get_scalar_param(params, FLEET_ENABLED, section is not None))
+    replicas = get_scalar_param(params, FLEET_REPLICAS, FLEET_REPLICAS_DEFAULT)
+    if not isinstance(replicas, int) or isinstance(replicas, bool) or replicas < 1:
+        raise ValueError(
+            f"fleet.{FLEET_REPLICAS} must be an int >= 1, got {replicas!r}"
+        )
+    retry_budget = get_scalar_param(
+        params, FLEET_RETRY_BUDGET, FLEET_RETRY_BUDGET_DEFAULT
+    )
+    if not isinstance(retry_budget, int) or isinstance(retry_budget, bool) \
+            or retry_budget < 0:
+        raise ValueError(
+            f"fleet.{FLEET_RETRY_BUDGET} must be an int >= 0 (failure "
+            f"re-routes per request; 0 = fail on first death), "
+            f"got {retry_budget!r}"
+        )
+    numbers = (
+        (FLEET_RETRY_BACKOFF, FLEET_RETRY_BACKOFF_DEFAULT,
+         "base failure-retry backoff"),
+        (FLEET_RETRY_BACKOFF_MAX, FLEET_RETRY_BACKOFF_MAX_DEFAULT,
+         "failure-retry backoff cap"),
+        (FLEET_ATTEMPT_TIMEOUT, FLEET_ATTEMPT_TIMEOUT_DEFAULT,
+         "per-attempt socket deadline (0 = unbounded)"),
+        (FLEET_DRAIN_TIMEOUT, FLEET_DRAIN_TIMEOUT_DEFAULT,
+         "replica drain deadline on SIGTERM"),
+        (FLEET_HEALTH_TTL, FLEET_HEALTH_TTL_DEFAULT,
+         "health probe cache TTL"),
+        (FLEET_SHED_RETRY_AFTER, FLEET_SHED_RETRY_AFTER_DEFAULT,
+         "retry-after hint on shed"),
+    )
+    vals = {}
+    for key, default, what in numbers:
+        v = get_scalar_param(params, key, default)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            raise ValueError(
+                f"fleet.{key} must be a number >= 0 ({what}), got {v!r}"
+            )
+        vals[key] = float(v)
+    affinity = get_scalar_param(
+        params, FLEET_AFFINITY_PREFIX_TOKENS,
+        FLEET_AFFINITY_PREFIX_TOKENS_DEFAULT
+    )
+    if not isinstance(affinity, int) or isinstance(affinity, bool) or affinity < 0:
+        raise ValueError(
+            f"fleet.{FLEET_AFFINITY_PREFIX_TOKENS} must be an int >= 0 "
+            f"(0 disables prefix affinity), got {affinity!r}"
+        )
+    saturation = get_scalar_param(
+        params, FLEET_SATURATION_QUEUE_DEPTH,
+        FLEET_SATURATION_QUEUE_DEPTH_DEFAULT
+    )
+    if not isinstance(saturation, int) or isinstance(saturation, bool) \
+            or saturation < 1:
+        raise ValueError(
+            f"fleet.{FLEET_SATURATION_QUEUE_DEPTH} must be an int >= 1, "
+            f"got {saturation!r}"
+        )
+    inflight = params.get(FLEET_MAX_INFLIGHT_TOKENS,
+                          FLEET_MAX_INFLIGHT_TOKENS_DEFAULT)
+    if isinstance(inflight, dict):
+        for cls, budget in inflight.items():
+            if not isinstance(cls, str) or not isinstance(budget, int) \
+                    or isinstance(budget, bool) or budget < 0:
+                raise ValueError(
+                    f"fleet.{FLEET_MAX_INFLIGHT_TOKENS}[{cls!r}] must map a "
+                    f"request-class name to an int >= 0 token budget "
+                    f"(0 = unbounded), got {budget!r}"
+                )
+    elif not isinstance(inflight, int) or isinstance(inflight, bool) \
+            or inflight < 0:
+        raise ValueError(
+            f"fleet.{FLEET_MAX_INFLIGHT_TOKENS} must be an int >= 0 or a "
+            f"{{class: budget}} dict (0 = unbounded), got {inflight!r}"
+        )
+    return FleetConfig(
+        enabled=enabled,
+        replicas=replicas,
+        retry_budget=retry_budget,
+        retry_backoff_s=vals[FLEET_RETRY_BACKOFF],
+        retry_backoff_max_s=vals[FLEET_RETRY_BACKOFF_MAX],
+        attempt_timeout_s=vals[FLEET_ATTEMPT_TIMEOUT],
+        drain_timeout_s=vals[FLEET_DRAIN_TIMEOUT],
+        health_ttl_s=vals[FLEET_HEALTH_TTL],
+        affinity_prefix_tokens=affinity,
+        saturation_queue_depth=saturation,
+        max_inflight_tokens=inflight,
+        shed_retry_after_s=vals[FLEET_SHED_RETRY_AFTER],
+        autoscale=_get_fleet_autoscale(params),
+        degrade=_get_fleet_degrade(params),
+        breaker=_get_fleet_breaker(params),
+        rollout=_get_fleet_rollout(params),
+        roles=_get_fleet_roles(params),
+        handoff=_get_fleet_handoff(params),
+    )
+
+
 def get_resilience_config(param_dict):
     """resilience: step-level divergence guard / watchdog / auto-rollback
     recovery and the job-level keys (runtime/resilience/), with the JAX
@@ -689,6 +1283,7 @@ class DeepSpeedConfig:
         (self.pld_enabled, self.pld_theta,
          self.pld_gamma) = get_progressive_layer_drop(param_dict)
         self.serving_config = get_serving_config(param_dict)
+        self.fleet_config = get_fleet_config(param_dict)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size

@@ -166,10 +166,146 @@ SERVING_KV_PAGE_TOKENS_DEFAULT = None  # None = 128 (resolve_page_tokens)
 SERVING_KV_POOL_TOKENS = "kv_pool_tokens"
 SERVING_KV_POOL_TOKENS_DEFAULT = None  # None = max_slots * max_seq_len
 
+# Fleet (inference/serving/router.py + replica.py: routing front-door
+# over N supervised ServingEngine replicas). Opt-in like serving: the
+# block being present enables it.
+#############################################
+FLEET = "fleet"
+FLEET_ENABLED = "enabled"
+FLEET_REPLICAS = "replicas"
+FLEET_REPLICAS_DEFAULT = 2
+FLEET_RETRY_BUDGET = "retry_budget"
+FLEET_RETRY_BUDGET_DEFAULT = 2  # failure re-routes; rejections are free
+FLEET_RETRY_BACKOFF = "retry_backoff_s"
+FLEET_RETRY_BACKOFF_DEFAULT = 0.05
+FLEET_RETRY_BACKOFF_MAX = "retry_backoff_max_s"
+FLEET_RETRY_BACKOFF_MAX_DEFAULT = 2.0
+FLEET_ATTEMPT_TIMEOUT = "attempt_timeout_s"
+FLEET_ATTEMPT_TIMEOUT_DEFAULT = 120.0  # 0 = unbounded attempt waits
+FLEET_DRAIN_TIMEOUT = "drain_timeout_s"
+FLEET_DRAIN_TIMEOUT_DEFAULT = 30.0
+FLEET_HEALTH_TTL = "health_ttl_s"
+FLEET_HEALTH_TTL_DEFAULT = 0.25
+FLEET_AFFINITY_PREFIX_TOKENS = "affinity_prefix_tokens"
+FLEET_AFFINITY_PREFIX_TOKENS_DEFAULT = 16  # 0 = pure least-loaded
+FLEET_SATURATION_QUEUE_DEPTH = "saturation_queue_depth"
+FLEET_SATURATION_QUEUE_DEPTH_DEFAULT = 32
+FLEET_MAX_INFLIGHT_TOKENS = "max_inflight_tokens"
+FLEET_MAX_INFLIGHT_TOKENS_DEFAULT = 0  # 0 = unbounded; int or {class: n}
+FLEET_SHED_RETRY_AFTER = "shed_retry_after_s"
+FLEET_SHED_RETRY_AFTER_DEFAULT = 0.5
+
+# fleet.autoscale: SLO-driven replica-count control loop
+# (inference/serving/autoscaler.py). Opt-in by sub-block presence.
+FLEET_AUTOSCALE = "autoscale"
+FLEET_AUTOSCALE_ENABLED = "enabled"
+FLEET_AUTOSCALE_MIN_REPLICAS = "min_replicas"
+FLEET_AUTOSCALE_MIN_REPLICAS_DEFAULT = 1
+FLEET_AUTOSCALE_MAX_REPLICAS = "max_replicas"
+FLEET_AUTOSCALE_MAX_REPLICAS_DEFAULT = 4
+FLEET_AUTOSCALE_WARM_SPARES = "warm_spares"
+FLEET_AUTOSCALE_WARM_SPARES_DEFAULT = 1  # 0 = cold-start scale-up
+FLEET_AUTOSCALE_UP_AFTER = "up_after_s"
+FLEET_AUTOSCALE_UP_AFTER_DEFAULT = 1.0
+FLEET_AUTOSCALE_DOWN_AFTER = "down_after_s"
+FLEET_AUTOSCALE_DOWN_AFTER_DEFAULT = 5.0
+FLEET_AUTOSCALE_COOLDOWN = "cooldown_s"
+FLEET_AUTOSCALE_COOLDOWN_DEFAULT = 2.0
+FLEET_AUTOSCALE_POLL_INTERVAL = "poll_interval_s"
+FLEET_AUTOSCALE_POLL_INTERVAL_DEFAULT = 0.25
+
+# fleet.degrade: degraded-mode ladder (inference/serving/degrade.py).
+FLEET_DEGRADE = "degrade"
+FLEET_DEGRADE_ENABLED = "enabled"
+FLEET_DEGRADE_ESCALATE_AFTER = "escalate_after_s"
+FLEET_DEGRADE_ESCALATE_AFTER_DEFAULT = 0.5
+FLEET_DEGRADE_RECOVER_AFTER = "recover_after_s"
+FLEET_DEGRADE_RECOVER_AFTER_DEFAULT = 2.0
+FLEET_DEGRADE_PRESSURE_QUEUE_FRAC = "pressure_queue_frac"
+FLEET_DEGRADE_PRESSURE_QUEUE_FRAC_DEFAULT = 0.75
+FLEET_DEGRADE_SHED_CLASSES = "shed_classes"
+FLEET_DEGRADE_SHED_CLASSES_DEFAULT = ()  # empty = all but "default"
+
+# fleet.breaker: per-replica crash-loop circuit breakers
+# (launcher/supervisor.py CrashLoopBreaker).
+FLEET_BREAKER = "breaker"
+FLEET_BREAKER_ENABLED = "enabled"
+FLEET_BREAKER_THRESHOLD = "threshold"
+FLEET_BREAKER_THRESHOLD_DEFAULT = 3
+FLEET_BREAKER_WINDOW = "window_s"
+FLEET_BREAKER_WINDOW_DEFAULT = 30.0
+FLEET_BREAKER_COOLDOWN = "cooldown_s"
+FLEET_BREAKER_COOLDOWN_DEFAULT = 5.0
+
+# fleet.rollout: zero-downtime weight rollout state machine
+# (inference/serving/rollout.py). Opt-in by sub-block presence.
+FLEET_ROLLOUT = "rollout"
+FLEET_ROLLOUT_ENABLED = "enabled"
+FLEET_ROLLOUT_CANARY_FRACTION = "canary_fraction"
+FLEET_ROLLOUT_CANARY_FRACTION_DEFAULT = 0.1
+FLEET_ROLLOUT_CANARY_REPLICAS = "canary_replicas"
+FLEET_ROLLOUT_CANARY_REPLICAS_DEFAULT = 1
+FLEET_ROLLOUT_SHADOW_SAMPLE_RATE = "shadow_sample_rate"
+FLEET_ROLLOUT_SHADOW_SAMPLE_RATE_DEFAULT = 0.25  # 0 = shadow mode off
+FLEET_ROLLOUT_SHADOW_MAX_PENDING = "shadow_max_pending"
+FLEET_ROLLOUT_SHADOW_MAX_PENDING_DEFAULT = 64
+FLEET_ROLLOUT_CANARY_HOLD = "canary_hold_s"
+FLEET_ROLLOUT_CANARY_HOLD_DEFAULT = 5.0
+FLEET_ROLLOUT_MIN_CANARY_REQUESTS = "min_canary_requests"
+FLEET_ROLLOUT_MIN_CANARY_REQUESTS_DEFAULT = 8
+FLEET_ROLLOUT_MIN_SHADOW_COMPARED = "min_shadow_compared"
+FLEET_ROLLOUT_MIN_SHADOW_COMPARED_DEFAULT = 4
+FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD = "shadow_diff_threshold"
+FLEET_ROLLOUT_SHADOW_DIFF_THRESHOLD_DEFAULT = 0.0  # any diff rolls back
+FLEET_ROLLOUT_MAX_CANARY_CRASHES = "max_canary_crashes"
+FLEET_ROLLOUT_MAX_CANARY_CRASHES_DEFAULT = 1
+FLEET_ROLLOUT_ROLLBACK_ON = "rollback_on"
+FLEET_ROLLOUT_ROLLBACK_ON_DEFAULT = (
+    "slo_alert", "shadow_diff", "canary_crash")
+FLEET_ROLLOUT_POLL_INTERVAL = "poll_interval_s"
+FLEET_ROLLOUT_POLL_INTERVAL_DEFAULT = 0.5
+FLEET_ROLLOUT_RECOVERY_BOUND = "recovery_bound_s"
+FLEET_ROLLOUT_RECOVERY_BOUND_DEFAULT = 30.0
+
+# fleet.roles: disaggregated prefill/decode role pools
+# (inference/serving/router.py role scoring + autoscaler.py
+# RolePoolAutoscaler). Opt-in by sub-block presence.
+FLEET_ROLES = "roles"
+FLEET_ROLES_ENABLED = "enabled"
+FLEET_ROLES_PREFILL_REPLICAS = "prefill_replicas"
+FLEET_ROLES_PREFILL_REPLICAS_DEFAULT = 1
+FLEET_ROLES_DECODE_REPLICAS = "decode_replicas"
+FLEET_ROLES_DECODE_REPLICAS_DEFAULT = 1
+FLEET_ROLES_MAX_PREFILL_REPLICAS = "max_prefill_replicas"
+FLEET_ROLES_MAX_PREFILL_REPLICAS_DEFAULT = 4
+FLEET_ROLES_MAX_DECODE_REPLICAS = "max_decode_replicas"
+FLEET_ROLES_MAX_DECODE_REPLICAS_DEFAULT = 4
+# the role attribute values a replica may carry
+FLEET_ROLE_VALUES = ("prefill", "decode", "mixed")
+
+# fleet.handoff: crash-safe KV-page transfer between prefill and decode
+# workers (inference/serving/handoff.py). Opt-in by sub-block presence.
+FLEET_HANDOFF = "handoff"
+FLEET_HANDOFF_ENABLED = "enabled"
+FLEET_HANDOFF_MAX_FRAME_BYTES = "max_frame_bytes"
+FLEET_HANDOFF_MAX_FRAME_BYTES_DEFAULT = 8 << 20
+FLEET_HANDOFF_ATTEMPT_TIMEOUT = "attempt_timeout_s"
+FLEET_HANDOFF_ATTEMPT_TIMEOUT_DEFAULT = 30.0
+FLEET_HANDOFF_RETRIES = "retries"
+FLEET_HANDOFF_RETRIES_DEFAULT = 3  # total attempts, >= 1
+FLEET_HANDOFF_BACKOFF = "backoff_s"
+FLEET_HANDOFF_BACKOFF_DEFAULT = 0.05
+FLEET_HANDOFF_BACKOFF_MAX = "backoff_max_s"
+FLEET_HANDOFF_BACKOFF_MAX_DEFAULT = 2.0
+FLEET_HANDOFF_CLAIM_TTL = "claim_ttl_s"
+FLEET_HANDOFF_CLAIM_TTL_DEFAULT = 30.0
+FLEET_HANDOFF_RESUME_TTL = "resume_ttl_s"
+FLEET_HANDOFF_RESUME_TTL_DEFAULT = 60.0
+
 # sections and switches of the JAX config the port does not run yet: a
 # config that enables one is refused by name
 UNPORTED_SECTIONS = ("pipeline", "sparse_attention",
                      "flops_profiler", "amp",
                      "curriculum_learning", "tensorboard", "csv_monitor", "sentinel",
-                     "tensor_parallel", "mesh", "parallel", "fleet",
+                     "tensor_parallel", "mesh", "parallel",
                      "sparse_gradients", "wall_clock_breakdown", "memory_breakdown")

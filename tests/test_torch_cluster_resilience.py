@@ -30,7 +30,7 @@ from deepspeed_tpu_torch.comm.errors import CommError, CommTimeoutError, DeadPee
 from deepspeed_tpu_torch.comm.health import HealthGossip
 from deepspeed_tpu_torch.launcher import launch
 from deepspeed_tpu_torch.launcher import multinode_runner as mnr
-from deepspeed_tpu_torch.launcher.runner import encode_world_info
+from deepspeed_tpu_torch.launcher.runner import decode_world_info, encode_world_info
 from deepspeed_tpu_torch.launcher.supervisor import (
     CLASS_CLEAN,
     CLASS_CRASH,
@@ -641,15 +641,28 @@ def test_launch_propagates_child_exit_code(tmp_path, monkeypatch):
 
 
 def test_launch_refuses_the_fleet_options_by_name(monkeypatch):
-    world = encode_world_info({"host-0": [0]})
-    for opt in ("--replica_port=7000", "--replica_config=r.json"):
-        monkeypatch.setattr(sys, "argv", ["launch.py", f"--world_info={world}", opt,
-                                          "train.py"])
-        with pytest.raises(NotImplementedError, match=opt.split("=")[0]):
-            launch.main()
+    """The fleet's options, once refused by name, are taken as the JAX
+    launcher takes them: each local worker gets its own replica port and
+    the replica config."""
+    from deepspeed_tpu_torch.launcher.supervisor import (
+        REPLICA_CONFIG_ENV,
+        REPLICA_PORT_ENV,
+        WorkerSupervisor,
+    )
+
+    world = encode_world_info({"host-0": [0, 1]})
+    args = launch.parse_args([f"--world_info={world}", "--replica_port=7000",
+                              "--replica_config=r.json", "--collector_port=0", "train.py"])
+    assert (args.replica_port, args.replica_config, args.collector_port) == (7000, "r.json", 0)
+    envs = launch.worker_envs(decode_world_info(world), 0, "127.0.0.1", 29500)
+    sup = WorkerSupervisor(["true"], env={}, local_envs=envs, replica_port=args.replica_port,
+                           replica_config=args.replica_config)
+    assert [sup.worker_env(i)[REPLICA_PORT_ENV] for i in range(2)] == ["7000", "7001"]
+    assert {sup.worker_env(i)[REPLICA_CONFIG_ENV] for i in range(2)} == {"r.json"}
+    assert sup.replica_endpoints == [("127.0.0.1", 7000), ("127.0.0.1", 7001)]
     # the training script's own arguments are not the launcher's
     args = launch.parse_args([f"--world_info={world}", "train.py", "--replica_port=1"])
-    assert args.training_script_args == ["--replica_port=1"]
+    assert args.training_script_args == ["--replica_port=1"] and args.replica_port is None
 
 
 def test_ssh_runner_propagates_first_nonzero_status(tmp_path):

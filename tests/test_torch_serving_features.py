@@ -231,8 +231,16 @@ def test_from_config_builds_the_serving_block(model):
         telemetry.configure(False)
         telemetry.get_tracer().events(drain=True)
         telemetry.get_registry().unregister("Serving/Snapshot")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        ServingEngine.from_config(params, cfg, dict(ds, fleet={"replicas": 2}), device="cpu")
+    # the fleet block is parsed as the JAX package parses it, and its
+    # degrade sub-block arms the engine's ladder
+    eng = ServingEngine.from_config(
+        params, cfg, dict(ds, telemetry={"enabled": False},
+                          fleet={"replicas": 2, "degrade": {"escalate_after_s": 0.1}}),
+        device="cpu")
+    try:
+        assert eng._degrade is not None and eng._degrade.config.escalate_after_s == 0.1
+    finally:
+        eng.close()
 
 
 # -- the degrade ladder -----------------------------------------------------------

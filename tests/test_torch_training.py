@@ -286,7 +286,7 @@ def test_config_errors_match_jax(tmp_path):
 @pytest.mark.parametrize("section", [
     {"csv_monitor": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
-    {"optimizer": {"type": "OneBitAdam"}}, {"fleet": {"replicas": 2}},
+    {"optimizer": {"type": "OneBitAdam"}}, {"tensor_parallel": {"enabled": True}},
     {"pipeline": {"stages": 2}}, {"sparse_attention": {"mode": "fixed"}},
     {"mesh": {"data_parallel_size": 2}}, {"parallel": {"mesh_shape": [1, 2]}},
     {"flops_profiler": {"enabled": True}},
