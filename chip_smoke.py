@@ -22,10 +22,11 @@ prints no result line):
    width or the chunk around it (for the band: a query alone equals its
    row among 8 and among all the case's queries), and that a one-token
    prompt's prefill alone equals its row of a bucket-wide prefill chunk;
-3. serve GPT-2 XL at full width (random weights from seed 0, bf16) with
-   the continuous-batching engine on the kernel backends, and show that
-   both kernels launched;
-4. at full width in fp32, hold every served request's greedy tokens
+3. serve GPT-2 XL at full width and 24 of its 48 layers (random weights
+   from seed 0, bf16) with the continuous-batching engine on the kernel
+   backends, and show that both kernels launched;
+4. at full width and 24 of 48 layers in fp32, hold every served request's
+   greedy tokens
    against the one-shot ``generate()`` on the same backend;
 5. hold the three flash-attention kernels (forward, dq, dk/dv/dbias)
    against their plain versions at the BERT-large training shapes (bf16
@@ -54,19 +55,19 @@ prints no result line):
    CPU at BERT-large's 336,232,258 elements, and time it beside its plain
    version, ``torch._fused_adamw_`` and its bound (28 bytes an element
    at the fastest of four host memory streams); start NCCL at world 1
-   and train phase 6's bf16 Adam BERT-large (6 of its 24 layers) 3 steps
+   and train phase 6's bf16 Adam BERT-large (3 of its 24 layers) 3 steps
    at ZeRO stages 0, 0 again, 1, 2 and 3 and ZeRO-2 + ``cpu_offload``
    sequential and
    streamed (4 buckets) under deterministic algorithms: each stage's
    losses and final masters must equal stage 0's, and streamed
    sequential's, bit for bit; then, under the default algorithms,
-   stage 0, offload sequential and offload streamed at 12 of the 24
+   stage 0, offload sequential and offload streamed at 6 of the 24
    layers, 3 warm-up and 10 timed steps each: the loss
    must fall, peak device memory under offload stay below stage 0's, and
-   the flash kernels launch 24/12/12 times a step; last, report whether stage 0 run twice under the
+   the flash kernels launch 12/6/6 times a step; last, report whether stage 0 run twice under the
    default algorithms agrees with itself, and which embedding-backward
    kernels each mode launches;
-9. (``ckpt``) checkpoint and resume at BERT-large's width and 6 of its
+9. (``ckpt``) checkpoint and resume at BERT-large's width and 3 of its
    24 layers, phase 6's
    bf16 Adam, under deterministic algorithms, at ZeRO stage 0 (with the
    ``telemetry`` block armed), ZeRO-2 + ``cpu_offload`` streamed (4
@@ -74,7 +75,7 @@ prints no result line):
    3 more; a fresh engine from init seed 99 loads the tag and trains the
    same 3 steps, whose losses and final fp32 masters must equal the
    uninterrupted run's (``torch.equal``) while the flash kernels launch
-   12/6/6 times a step; ``zero_to_fp32`` of the offload tag must equal
+   6/3/3 times a step; ``zero_to_fp32`` of the offload tag must equal
    the masters at the save; the stage-0 trace must hold
    ``train/checkpoint_save``, ``checkpoint/commit`` and the step spans
    (written to ``build/ckpt_trace.json``). Tags go to a temporary
@@ -127,7 +128,8 @@ prints no result line):
    BingBertSquad's settings (batch 24 as one micro-batch, Adam 3e-5, no
    weight decay, clipping 1.0, fp16 with dynamic loss scaling from 2^16):
    the fp16 flash routines 48/24/24 a step, the loss finite and falling;
-12. (``serve6``) the serving features at GPT-2 XL width (phase 3's engine,
+12. (``serve6``) the serving features at GPT-2 XL width, 24 of its 48
+   layers in fp32 (phase 3's engine,
    the prompts' lengths, the four of 300 tokens or more sharing their
    first 256 tokens, two waves): a. in fp32 with ``speculative_k`` 4,
    ``prefill_chunk_tokens`` 256 and the prefix cache, served tokens
@@ -142,7 +144,7 @@ prints no result line):
    as ``generate()`` serves it, a corrupted blob is dropped and the prompt
    prefilled, the ``host_mem_pressure`` arm climbs the guard to its top
    level; d. beam search, W = 1 equal to greedy ``generate()`` and W = 4
-   timed; b. in bf16, timed at 12 of the 48 layers: k = 0, k = 4, chunks
+   timed; b. in bf16, timed at 6 of the 48 layers: k = 0, k = 4, chunks
    of 256 and the prefix cache, each pass's TTFT p50/p95, decode tokens/s, tokens a step,
    accept rate, prefix hit rate and reused tokens, and the kernels'
    launches; the int8 weights' bytes against bf16's. The phase-2 cases
@@ -250,9 +252,43 @@ prints no result line):
    compressed steps finite and below the first loss, the bytes a rank
    sends a step on each path.
 
+17. (``serve_tp``) the serving engine on a tensor-parallel mesh
+   (``serving.mesh_shape`` (1, 2)) at GPT-2 large's width (hidden 1280, 20
+   heads of 64): two rank processes on the one card over gloo (phase 16's
+   machinery), rank 0 submitting and planning every step, each rank
+   holding its 10 heads of the layers and of the KV pool. a. fp32 at 6 of
+   the 36 layers, phase 4's 8 prompts and 32 new tokens: served at TP 2
+   against TP 1 served and against ``generate()`` under phase 4's margin
+   rule, plain and with chunks of 256 and the prefix cache (its second
+   pass hitting it); each rank's decode and band launches above 0 and
+   alike on both ranks; a rank's pool half of TP 1's bytes; a planted
+   fault (the row-parallel reduce skipped) must serve other tokens; a
+   request whose deadline passes on rank 0's clock only (it jumps 600 s
+   after step 3) retires on both ranks at one step; b. the decode kernel
+   (C = 1, 5, 256) and the band kernel (N = 8, 40) at 10 heads against
+   their plain versions, fp32 and bf16, timed as phase 2 does; c. bf16 at
+   all 36 layers, one prompt's 4 tokens to warm up, then a timed pass:
+   TTFT p50 / p95, decode
+   tokens/s and step ms, host-staged collectives and bytes a step, peak
+   memory a rank, the share of tokens equal to TP 1 bf16 (reported); d.
+   GPT-2 XL's 25 heads at TP 2 raise the JAX engine's message.
+   Phase 15 adds d: ZeRO and tensor parallelism under the pipeline at
+   GPT-2 large's width (GPT-2 XL's 25 heads do not split in two), 4 of 36
+   blocks as 2 stages, fp32 under deterministic algorithms: one process (the parent) against TP 2 (dropout 0.1) and
+   data 2 x TP 2 with ZeRO-1 and ZeRO-2 (dropout 0), held as phase 16
+   holds TP 1 (losses, first-step gradients, masters), each check beside
+   its planted fault's reading; the ZeRO-1 tag read by ``zero_to_fp32``
+   and loaded at one process equal to the masters exactly; then bf16 at
+   12 blocks as 4 stages at TP 2, timed, the flash launches a step equal
+   to the schedule's count. Phase 16 adds g: a ``MoELayer`` at
+   Switch-Base-8 widths under ``initialize()`` at dp 2 with its experts
+   split, against world 1 on the same global batch (no token dropped, no
+   aux loss), beside a planted fault (the expert gradients averaged over
+   the data group).
+
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad,
-zero, ckpt, resil, pld, serve6, fleet, sparse, pipe, parallel) while a
-kernel is being worked on; such a run prints no result line.
+zero, ckpt, resil, pld, serve6, fleet, sparse, pipe, parallel, serve_tp)
+while a kernel is being worked on; such a run prints no result line.
 
 The line before the last is the kernels' JSON, with the card's name and
 power limit printed before it; the last line is the run's JSON result.
@@ -287,6 +323,10 @@ B, NH, HD, PT, MP = 8, 25, 64, 128, 8      # GPT-2 XL serving shapes
 W = 2 * PT                                  # band window (SPARSE_BAND + 1 pages)
 PROMPT_LENS = (16, 40, 100, 200, 300, 480, 700, 900)
 NEW_TOKENS = 32
+# phases 3, 4 and 12 (its fp32 passes): GPT-2 XL's width at 24 of its 48
+# layers since phase 17 joined the script (depth, not width, is cut so the
+# whole script stays inside its time limit)
+SERVE_LAYERS = 24
 # (atol, rtol) of kernel vs plain version. fp32: the same math in another
 # summation order. bf16: the plain version rounds QK to bf16 before the
 # softmax (as the TPU kernel does), the kernel keeps it in fp32. int8: both
@@ -722,7 +762,7 @@ def _profile(eng):
 def phase_serve():
     from deepspeed_tpu_torch import GPT2Config, init_gpt2, kernels
 
-    cfg = GPT2Config.gpt2_xl()
+    cfg = GPT2Config.gpt2_xl(num_hidden_layers=SERVE_LAYERS)
     model = init_gpt2(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     eng = _engine(model, cfg, "bf16")
     _, _, cold = _drive(eng)        # first pass: one-time costs (cuBLAS, allocator)
@@ -735,7 +775,8 @@ def phase_serve():
     counts = {k: counts[k] for k in SERVING_KERNELS}
     if min(counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path never launched: {counts}")
-    res = dict(model="gpt2_xl bf16 (seed 0), kv bf16, 8 slots, max_seq_len 1024",
+    res = dict(model=f"gpt2_xl bf16 (seed 0), {SERVE_LAYERS} of 48 layers, kv bf16, 8 slots, "
+                     "max_seq_len 1024",
                prompt_lens=list(PROMPT_LENS), new_tokens=NEW_TOKENS, impls=impls,
                **warm, cold_pass=cold, launches=counts,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
@@ -772,7 +813,7 @@ def _margins(model, cfg, prompt, impl, n_new=NEW_TOKENS):
 def phase_oracle():
     from deepspeed_tpu_torch import GPT2Config, generate, init_gpt2
 
-    cfg = GPT2Config.gpt2_xl()
+    cfg = GPT2Config.gpt2_xl(num_hidden_layers=SERVE_LAYERS)
     model = init_gpt2(cfg, seed=0, device="cuda", dtype=torch.float32)
     outs, impls, _ = _drive(_engine(model, cfg, "fp32"))
     rows = []
@@ -1218,11 +1259,13 @@ class _PlainAttention:
 # phase 6 with only zero_optimization changed)
 ZERO_STEPS = 3
 # the bit-for-bit runs' depth (BERT-large's width): equality does not
-# depend on depth, and the script must end inside its time limit
-ZERO_EQUAL_LAYERS = 6
-# the timed runs' depth since phase 16 joined the script (depth, not width,
-# is cut so the whole script stays inside its time limit)
-ZERO_TIMED_LAYERS = 12
+# depend on depth, and the script must end inside its time limit (3 since
+# phase 17 joined it, 6 before)
+ZERO_EQUAL_LAYERS = 3
+# the timed runs' depth: 12 since phase 16 joined the script, 6 since phase
+# 17 did (depth, not width, is cut so the whole script stays inside its
+# time limit)
+ZERO_TIMED_LAYERS = 6
 OFFLOAD_BUCKETS = 4                         # the streamed run; 1 is sequential
 CPU_ADAM_N = 336_232_258                    # BERT-large's parameters
 CPU_ADAM_BYTES = 28                         # read p, g, m, v; write p, m, v (fp32)
@@ -1548,9 +1591,10 @@ def _zero_timed(dt, failures):
 
 
 CKPT_STEPS = 3
-# the runs' depth (BERT-large's width): 6 of 24 layers keep the three tags
-# and their saves and loads inside the script's time limit beside phase 13
-CKPT_LAYERS = 6
+# the runs' depth (BERT-large's width): 3 of 24 layers (6 before phase 17
+# joined the script) keep the three tags and their saves and loads inside
+# the script's time limit
+CKPT_LAYERS = 3
 CKPT_RUNS = (("stage0", dict(stage=0)), ("offload_streamed", OFFLOAD_STREAMED),
              ("stage3", dict(stage=3)))
 CKPT_SPACE_FACTOR = 2.5        # free space needed, in tags of the largest size
@@ -2275,7 +2319,7 @@ SPEC_K, CHUNK, SHARED_PREFIX = 4, 256, 256
 # the bf16 timed passes run GPT-2 XL's width at a quarter of its depth, so
 # that the script ends inside its time limit with phase 13 after it; the
 # oracles keep the whole depth (int8's token match depends on it)
-SERVE6_TIMED_LAYERS = 12
+SERVE6_TIMED_LAYERS = 6
 # submitted in two waves, the second after the first has drained: the
 # second wave's shared-prefix prompts hit the first's entries
 WAVES = ((0, 1, 4, 6), (2, 3, 5, 7))
@@ -2480,9 +2524,10 @@ def phase_serve6():
     from deepspeed_tpu_torch.inference.beam import beam_search
     from deepspeed_tpu_torch.inference.serving.fault_injection import ServingFaultInjector
 
-    cfg = GPT2Config.gpt2_xl()
+    cfg = GPT2Config.gpt2_xl(num_hidden_layers=SERVE_LAYERS)
     prompts = _serve6_prompts()
-    res = dict(model="gpt2_xl (seed 0), 8 slots, max_seq_len 1024, 128-token pages",
+    res = dict(model=f"gpt2_xl (seed 0), {SERVE_LAYERS} of 48 layers, 8 slots, max_seq_len "
+                     "1024, 128-token pages",
                prompt_lens=list(PROMPT_LENS), shared_prefix=SHARED_PREFIX,
                waves=[list(w) for w in WAVES], k=SPEC_K, chunk=CHUNK)
 
@@ -3761,7 +3806,11 @@ def phase_pipe(timer):
     with tempfile.TemporaryDirectory(dir="build", prefix="pipe_") as root:
         equal = _report("pipe_equal", _pipe_equal(root))
     timed = _report("pipe_timed", _pipe_timed())
-    return dict(cases=cases, causal_over_noncausal_fwd=ratio, equal=equal, timed=timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.abspath("build"), prefix="pipe_tp_") as root:
+        tp = _report("pipe_tp", _pipe_tp(root))
+    return dict(cases=cases, causal_over_noncausal_fwd=ratio, equal=equal, timed=timed, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -4333,7 +4382,8 @@ def _par_worker2(rank, world, root):
     for part, fn in (("a", lambda: _par_tp_equal(rank, world, root)),
                      ("c", lambda: _par_tp_timed(rank, world)),
                      ("d", lambda: _par_sp(rank, world)), ("e", lambda: _par_moe(rank, world)),
-                     ("f", lambda: _par_onebit(rank, world))):
+                     ("f", lambda: _par_onebit(rank, world)),
+                     ("g", lambda: _par_moe_engine(rank, world))):
         t0 = time.perf_counter()
         out[part] = fn()
         gc.collect()
@@ -4442,6 +4492,7 @@ def phase_parallel():
             for name, dropout in (("tp1_dropout", PAR_DROPOUT), ("tp1_nodrop", 0.0)):
                 ref[name], moved[name] = _par_tp1(root, store, name, dropout)
             torch.use_deterministic_algorithms(False)
+            moe_ref = _par_moe_engine_run()            # (g) at world 1
             torch.cuda.empty_cache() if PAR_DEVICE == "cuda" else None
             stamps = {"tp1": time.time() - epoch}
             store.wait([f"ready_w2_{r}" for r in range(2)])
@@ -4482,6 +4533,12 @@ def phase_parallel():
                                     - tp1_load["next_loss"]) / abs(tp1_load["next_loss"]),
                                 PAR_TOL, None),
         "b_tp1_next_flip_share": (tp1_load["next_flip_share"], PAR_FLIP_SHARE, None),
+        "g_moe_loss_rel": (rel(np.mean([r["g"]["losses"] for r in w2], axis=0),
+                               moe_ref["losses"]), PAR_TOL, None),
+        "g_moe_master_flip_share": (_par_flips(w2[0]["g"]["masters"], moe_ref["masters"])[0],
+                                    PAR_FLIP_SHARE,
+                                    _par_flips(w2[0]["g"]["planted_masters"],
+                                               moe_ref["masters"])[0]),
     }
     print("parallel_checks", json.dumps(dict(
         checks=checks, tp1_losses=ref, a_losses=[r["losses"] for r in a],
@@ -4521,11 +4578,792 @@ def phase_parallel():
         c=dict(model=f"bert_large, {PAR_FULL_LAYERS} layers, bf16, dropout {PAR_DROPOUT}, "
                      f"Adam lr 1e-4, TP 2, B {PAR_C_BATCH}, {PAR_C_WARM} warm-up + "
                      f"{PAR_C_TIMED} timed steps", ranks=[r["c"] for r in w2]),
-        d=[r["d"] for r in w2], e=[r["e"] for r in w2], f=[r["f"] for r in w2])
+        d=[r["d"] for r in w2], e=[r["e"] for r in w2], f=[r["f"] for r in w2],
+        g=dict(model=f"Dense + MoELayer (Switch-Base-8 widths: {PAR_MOE['experts']} experts, "
+                     f"d {PAR_MOE['d_model']}, f {PAR_MOE['d_ff']}, capacity factor "
+                     f"{PAR_MOE['experts']}) + Dense, fp32, no aux loss, Adam "
+                     f"lr {PAR_MOE_ENGINE['lr']}; dp 2 with the experts split against world 1",
+               world1_losses=moe_ref["losses"], ranks_losses=[r["g"]["losses"] for r in w2],
+               planted_losses=[r["g"]["planted_losses"] for r in w2],
+               seconds=[r["g"]["seconds"] for r in w2]))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the serving engine on a tensor-parallel mesh (serving.mesh_shape
+# (1, 2)): GPT-2 large, two rank processes on the one card over gloo (the
+# phase-16 machinery), rank 0 planning every step; the decode and band
+# kernels run over a rank's 10 of the 20 heads
+# ---------------------------------------------------------------------------
+
+TP_DEVICE = "cuda"
+STP_LAYERS = 6                 # (a): 6 of GPT-2 large's 36 layers, fp32
+STP_TIMED_LAYERS = 36          # (c): all 36, bf16
+STP_HEADS = 10                 # a rank's heads at TP 2 (GPT-2 large: 20 of 64)
+STP_PREFIX_MB = 512            # (a)'s prefix cache: every prompt of the pass fits
+STP_DEADLINE = dict(prompts=3, new=12, timeout_s=60.0, jump_after=3, jump_s=600.0)
+STP_MARGIN = 1e-3              # phase 4's rule: a divergence only at a near-tie
+
+
+def _stp_engine(model, cfg, kv, tp, **knobs):
+    """Phase 3's engine (8 slots, the paged-decode kernel, the band kernel for
+    the largest bucket) at mesh (1, 2) when ``tp``."""
+    from deepspeed_tpu_torch import ServingConfig, ServingEngine
+    from deepspeed_tpu_torch.inference.serving.scheduler import default_buckets
+
+    largest = default_buckets(cfg.max_position_embeddings - 1)[-1]
+    scfg = ServingConfig(max_slots=B, max_seq_len=cfg.max_position_embeddings,
+                         kv_cache_dtype=kv, mesh_shape=(1, 2) if tp else None,
+                         attention_impl={"default": "pallas_decode", largest: "pallas_sparse"},
+                         **knobs)
+    return ServingEngine(model, cfg, scfg, device=TP_DEVICE)
+
+
+def _stp_model(layers, dtype):
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.GPT2Config.gpt2_large(num_hidden_layers=layers)
+    return cfg, dt.init_gpt2(cfg, seed=0, device=TP_DEVICE, dtype=dtype)
+
+
+def _stp_serve(eng, passes=1, prompts=None, new=NEW_TOKENS, timeout_s=None, clock_jump=None,
+               warmup=False):
+    """Rank 0 submits ``prompts`` ``passes`` times (draining each pass) and
+    closes the engine; another rank follows its plans. Returns rank 0's
+    tokens (an error's name for a request that failed) and each pass's
+    metrics, and every rank's (step, timed out, completed) after each step.
+    ``clock_jump`` = (step, s) moves rank 0's clock ahead after that step;
+    ``warmup`` first serves the shortest prompt 4 tokens (one-time costs),
+    unreported."""
+    from deepspeed_tpu_torch.inference.serving.metrics import ServingMetrics
+
+    prompts = _prompts() if prompts is None else prompts
+    steps, passes_out, toks = [], [], []
+    real = time.monotonic
+    offset = [0.0]
+    if clock_jump is not None and eng._lead:
+        time.monotonic = lambda: real() + offset[0]
+    try:
+        if not eng._lead:
+            while eng.step() is not None:
+                steps.append((eng._step_count, eng.scheduler.timed_out,
+                              eng.scheduler.completed))
+            return dict(steps=steps)
+        if warmup:
+            eng.submit(prompts[0], max_new_tokens=4)
+            eng.drain()
+        for _ in range(passes):
+            eng.metrics = ServingMetrics()
+            staged0 = dict(_comm_staged())
+            futs = [eng.submit(p, max_new_tokens=new,
+                               timeout_s=timeout_s if i == 1 else None)
+                    for i, p in enumerate(prompts)]
+            t0, s0 = time.perf_counter(), eng._step_count
+            while eng.pending():
+                eng.step()
+                steps.append((eng._step_count, eng.scheduler.timed_out,
+                              eng.scheduler.completed))
+                if clock_jump is not None and eng._step_count == clock_jump[0]:
+                    offset[0] = clock_jump[1]
+            torch.cuda.synchronize() if TP_DEVICE == "cuda" else None
+            wall = time.perf_counter() - t0
+            snap = eng.metrics.snapshot()
+            n_steps = eng._step_count - s0
+            staged = {k: _comm_staged()[k] - staged0[k] for k in staged0}
+            passes_out.append(dict(
+                ttft_p50_s=snap["ttft_p50_s"], ttft_p95_s=snap["ttft_p95_s"],
+                decode_tokens_per_s=snap["tokens_per_sec"],
+                decode_step_ms=1e3 * snap["decode_time_s"] / max(snap["decode_steps"], 1),
+                decode_steps=snap["decode_steps"], engine_steps=n_steps, wall_s=wall,
+                host_staged_calls_per_step=staged["calls"] / max(n_steps, 1),
+                host_staged_bytes_per_step=staged["bytes"] / max(n_steps, 1)))
+            out = []
+            for f in futs:
+                try:
+                    out.append(f.result(timeout=0))
+                except Exception as exc:  # noqa: BLE001 (reported by name)
+                    out.append(type(exc).__name__)
+            toks.append(out)
+    finally:
+        time.monotonic = real
+        if eng._lead:
+            eng.close()
+    return dict(tokens=toks, passes=passes_out, steps=steps)
+
+
+def _comm_staged():
+    from deepspeed_tpu_torch.comm import HOST_STAGED
+
+    return HOST_STAGED
+
+
+def _stp_run(cfg, model, kv, tp, passes=1, **knobs):
+    """One engine's passes: rank 0's tokens and metrics, this rank's serving
+    kernel launches (counts set to 0 just before), pool bytes and prefix
+    stats."""
+    import deepspeed_tpu_torch as dt
+
+    eng = _stp_engine(model, cfg, kv, tp, **knobs)
+    dt.kernels.reset_launch_counts()
+    out = _stp_serve(eng, passes)
+    counts = dt.kernels.launch_counts()
+    out.update(launches={k: counts[k] for k in SERVING_KERNELS}, pool_bytes=eng.pool.nbytes(),
+               pool_heads=eng.pool.n_heads, prefix=eng.prefix_stats(),
+               impls=[eng._impl_for_len(len(p)) for p in _prompts()])
+    del eng
+    return out
+
+
+def _stp_worker(rank, world, root):
+    """A rank of phase 17: (a) fp32 at 6 layers, plain, chunked with the
+    prefix cache (2 passes), a planted fault (the row-parallel reduce
+    skipped) and rank 0's clock jumping past a deadline; (d) GPT-2 XL's 25
+    heads; (c) bf16 at 36 layers, a short warm-up and a timed pass."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch import comm
+
+    torch.use_deterministic_algorithms(False)
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    cfg, model = _stp_model(STP_LAYERS, torch.float32)
+    out["plain"] = _stp_run(cfg, model, "fp32", True)
+    out["chunked_prefix"] = _stp_run(cfg, model, "fp32", True, passes=2,
+                                     prefill_chunk_tokens=CHUNK, prefix_cache_mb=STP_PREFIX_MB)
+    del model
+    cfg, model = _stp_model(STP_LAYERS, torch.float32)
+    saved = comm.reduce_from_model_region
+    comm.reduce_from_model_region = lambda x, group: x     # planted: no row reduce
+    try:
+        out["planted_no_row_reduce"] = _stp_run(cfg, model, "fp32", True)
+    finally:
+        comm.reduce_from_model_region = saved
+    del model
+    cfg, model = _stp_model(STP_LAYERS, torch.float32)
+    d = STP_DEADLINE
+    eng = _stp_engine(model, cfg, "fp32", True)
+    out["deadline"] = _stp_serve(eng, prompts=_prompts()[:d["prompts"]], new=d["new"],
+                                 timeout_s=d["timeout_s"],
+                                 clock_jump=(d["jump_after"], d["jump_s"]))
+    del eng, model
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xl = dt.GPT2Config.gpt2_xl(num_hidden_layers=1)
+    try:
+        _stp_engine(dt.init_gpt2(xl, seed=0, device=TP_DEVICE), xl, "bf16", True)
+        out["xl_heads"] = None
+    except ValueError as exc:
+        out["xl_heads"] = str(exc)
+    gc.collect()
+    torch.cuda.empty_cache() if TP_DEVICE == "cuda" else None
+    cfg, model = _stp_model(STP_TIMED_LAYERS, torch.bfloat16)
+    eng = _stp_engine(model, cfg, "bf16", True)
+    torch.cuda.reset_peak_memory_stats() if TP_DEVICE == "cuda" else None
+    dt.kernels.reset_launch_counts()
+    out["timed"] = _stp_serve(eng, warmup=True)
+    counts = dt.kernels.launch_counts()
+    out["timed"].update(
+        launches={k: counts[k] for k in SERVING_KERNELS}, pool_bytes=eng.pool.nbytes(),
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 2**30 if TP_DEVICE == "cuda"
+                     else None))
+    del eng, model
+    secs["c"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def _stp_tp1(root):
+    """The parent's side of (a) and (c): TP 1 served, the oracles from
+    ``generate()``, and TP 1's pool bytes."""
+    import deepspeed_tpu_torch as dt
+
+    torch.use_deterministic_algorithms(False)
+    cfg, model = _stp_model(STP_LAYERS, torch.float32)
+    res = dict(plain=_stp_run(cfg, model, "fp32", False),
+               chunked_prefix=_stp_run(cfg, model, "fp32", False, passes=2,
+                                       prefill_chunk_tokens=CHUNK,
+                                       prefix_cache_mb=STP_PREFIX_MB))
+    impls = res["plain"]["impls"]
+    res["generate"] = [dt.generate(model, cfg, [p], NEW_TOKENS, attn_impl=impl,
+                                   kv_page_tokens=PT, device=TP_DEVICE)[0].tolist()
+                       for p, impl in zip(_prompts(), impls)]
+    tcfg, tmodel = _stp_model(STP_TIMED_LAYERS, torch.bfloat16)
+    res["timed"] = _stp_run(tcfg, tmodel, "bf16", False)
+    del tmodel
+    return res, cfg, model
+
+
+def _stp_margin_check(model, cfg, label, got, want, impls):
+    """Phase 4's rule: each request equal to ``want`` or diverging first at
+    a step whose top-2 logit margin (one-shot path) is below STP_MARGIN."""
+    rows = []
+    for prompt, out, ref, impl in zip(_prompts(), got, want, impls):
+        row = dict(prompt_len=len(prompt), impl=impl, equal=out == ref)
+        if out != ref:
+            if not isinstance(out, list) or len(out) != len(ref):
+                raise RuntimeError(f"serve_tp {label}: request failed or short: {out}")
+            first = next(i for i, (a, b) in enumerate(zip(out, ref)) if a != b)
+            _, margins = _margins(model, cfg, prompt, impl)
+            row.update(first_divergence=first, top2_margin=margins[first])
+            if margins[first] >= STP_MARGIN:
+                raise RuntimeError(f"serve_tp {label}: diverges at step {first} with "
+                                   f"top-2 margin {margins[first]:.3e}: {row}")
+        rows.append(row)
+    return rows
+
+
+def _stp_kernel_cases(timer):
+    """(b): the decode and band kernels at a rank's 10 heads, the shapes of
+    (a): decode C = 1, 5, 256, band N = 8, 40, fp32 and bf16."""
+    global NH
+    saved = NH
+    NH = STP_HEADS
+    try:
+        decode = [_report("serve_tp_case", decode_case(timer, C, kv)) for C in (1, SPEC_K + 1,
+                                                                                 CHUNK)
+                  for kv in ("fp32", "bf16")]
+        band = [_report("serve_tp_case", band_case(timer, N, dt)) for N in (8, B * (SPEC_K + 1))
+                for dt in ("fp32", "bf16")]
+    finally:
+        NH = saved
+    return dict(heads=STP_HEADS, decode=decode, band=band)
+
+
+def phase_serve_tp(timer):
+    """Phase 17: the ranks start up while the parent runs TP 1, the oracles
+    and (b); then they run (a), (d) and (c)."""
+    import tempfile
+
+    import deepspeed_tpu_torch as dt
+
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.abspath("build"), prefix="serve_tp_") as root:
+        t0 = time.perf_counter()
+        store = _par_store()
+        ctx = _par_start(2, _stp_worker, root, store.port, gate="go_stp")
+        try:
+            tp1, cfg, model = _stp_tp1(root)
+            kcases = _stp_kernel_cases(timer)
+            parent_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache() if TP_DEVICE == "cuda" else None
+            t0 = time.perf_counter()
+            store.set("go_stp", "1")
+            ranks = _par_join(ctx, 2, root)
+            ranks_s = time.perf_counter() - t0
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            del store
+    r0, r1 = ranks
+    impls = tp1["plain"]["impls"]
+    checks = {}
+    for name in ("plain", "chunked_prefix"):
+        for i, toks in enumerate(r0[name]["tokens"]):
+            checks[f"a_{name}_pass{i}_vs_generate"] = _stp_margin_check(
+                model, cfg, f"{name} pass {i} vs generate()", toks, tp1["generate"], impls)
+            checks[f"a_{name}_pass{i}_vs_tp1"] = _stp_margin_check(
+                model, cfg, f"{name} pass {i} vs TP 1", toks, tp1[name]["tokens"][i], impls)
+    del model
+    gc.collect()
+    failures = []
+    for name in ("plain", "chunked_prefix", "timed"):
+        la, lb = r0[name]["launches"], r1[name]["launches"]
+        if TP_DEVICE == "cuda" and (min(la.values()) <= 0 or la != lb):
+            failures.append(f"{name}: serving kernel launches rank 0 {la}, rank 1 {lb}")
+    for name in ("plain", "timed"):
+        if 2 * r0[name]["pool_bytes"] != tp1[name]["pool_bytes"]:
+            failures.append(f"{name}: a rank's pool {r0[name]['pool_bytes']} B is not half of "
+                            f"TP 1's {tp1[name]['pool_bytes']} B")
+    if r0["plain"]["pool_heads"] != cfg.num_attention_heads // 2:
+        failures.append(f"a rank's pool holds {r0['plain']['pool_heads']} heads")
+    hits = r0["chunked_prefix"]["prefix"]["hits"]
+    if hits < len(PROMPT_LENS) or r0["chunked_prefix"]["prefix"] != r1["chunked_prefix"]["prefix"]:
+        failures.append(f"the second pass hit the prefix cache {hits} times, ranks "
+                        f"{r0['chunked_prefix']['prefix']} / {r1['chunked_prefix']['prefix']}")
+    sound = r0["plain"]["tokens"][0]
+    planted = r0["planted_no_row_reduce"]["tokens"][0]
+    planted_equal = sum(a == b for a, b in zip(planted, sound))
+    if planted_equal == len(sound):
+        failures.append("the planted fault (no row-parallel reduce) served the sound tokens")
+    dl0, dl1 = r0["deadline"], r1["deadline"]
+    timed_out_at = [s for s, t, _ in dl0["steps"] if t >= 1]
+    if dl0["steps"] != dl1["steps"] or not timed_out_at or \
+            dl0["tokens"][0][1] != "RequestTimeoutError":
+        failures.append(f"the deadline on rank 0's clock: rank 0 {dl0['steps']} "
+                        f"{dl0['tokens']}, rank 1 {dl1['steps']}")
+    want_msg = (f"serving.mesh_shape model axis 2 must divide num_attention_heads="
+                f"{dt.GPT2Config.gpt2_xl().num_attention_heads} (the KV pool shards heads)")
+    if r0["xl_heads"] != want_msg or r1["xl_heads"] != want_msg:
+        failures.append(f"GPT-2 XL at TP 2: {r0['xl_heads']!r}, want {want_msg!r}")
+    for t in r0["timed"]["tokens"]:
+        for out in t:
+            if not isinstance(out, list) or len(out) != NEW_TOKENS:
+                failures.append(f"timed pass: a bad output {out}")
+    if failures:
+        raise RuntimeError("serve_tp: " + "; ".join(failures))
+    tp1_bf16 = tp1["timed"]["tokens"][0]
+    timed = r0["timed"]["tokens"][0]
+    same = sum(a == b for x, y in zip(timed, tp1_bf16) for a, b in zip(x, y))
+    return dict(
+        model=f"gpt2_large (hidden 1280, 20 heads of 64), seed 0; (a) {STP_LAYERS} of 36 "
+              f"layers fp32, (c) {STP_TIMED_LAYERS} layers bf16; mesh (1, 2) as two gloo "
+              "rank processes on the one card, 8 slots, max_seq_len 1024",
+        note="gloo on one card: the row-parallel reduces and the token broadcasts stage "
+             "CUDA tensors through host memory; no time here is NCCL's",
+        checks=checks, kernels=kcases,
+        launches=dict(plain=[r["plain"]["launches"] for r in ranks],
+                      chunked_prefix=[r["chunked_prefix"]["launches"] for r in ranks],
+                      timed=[r["timed"]["launches"] for r in ranks]),
+        pool_bytes=dict(tp1=tp1["plain"]["pool_bytes"], rank=r0["plain"]["pool_bytes"],
+                        tp1_bf16_36=tp1["timed"]["pool_bytes"],
+                        rank_bf16_36=r0["timed"]["pool_bytes"]),
+        prefix=r0["chunked_prefix"]["prefix"],
+        planted_no_row_reduce_tokens_equal=f"{planted_equal}/{len(sound)}",
+        deadline=dict(steps=dl0["steps"], timed_out_at_step=timed_out_at[0],
+                      tokens=dl0["tokens"][0], **STP_DEADLINE),
+        xl_heads=r0["xl_heads"],
+        timed=dict(passes=r0["timed"]["passes"], tp1_pass=tp1["timed"]["passes"][0],
+                   peak_mem_gb_per_rank=[r["timed"]["peak_mem_gb"] for r in ranks],
+                   tokens_equal_tp1_bf16=same / (len(PROMPT_LENS) * NEW_TOKENS)),
+        a_passes=dict(plain=r0["plain"]["passes"], chunked_prefix=r0["chunked_prefix"]["passes"],
+                      tp1_plain=tp1["plain"]["passes"]),
+        seconds=dict(parent=parent_s, ranks_after_gate=ranks_s, rank=[r["seconds"] for r in ranks]))
+
+
+# -- phase 15 (d): ZeRO and tensor parallelism under the pipeline -----------
+# GPT-2 large's width (GPT-2 XL's 25 heads do not split in two: the port's
+# Megatron layers hold whole heads, and phase 17 d checks that refusal), 4
+# of 36 blocks as 2 stages, fp32 under deterministic algorithms: one
+# process (the parent) against TP 2 (2 rank processes, dropout 0.1) and
+# data 2 x TP 2 with ZeRO-1 and ZeRO-2 (4 rank processes, dropout 0: a data
+# rank's rows draw other dropout bits than the whole batch's); then bf16 at
+# 12 blocks as 4 stages at TP 2, timed. The ranks talk over gloo on the one
+# card (phase 16's machinery).
+
+PTP_LAYERS, PTP_STAGES, PTP_MICRO_BATCHES, PTP_STEPS = 4, 2, 2, 2
+PTP_TIMED_LAYERS, PTP_TIMED_STAGES = 12, 4
+PTP_WARMUP, PTP_TIMED_STEPS = 1, 1          # a bf16 step takes 8-10 s over gloo
+PTP_TIMED_MICRO_BATCHES = 4
+
+
+def _ptp_engine(layers, stages, dtype_name, micro_batches, dropout, extra=None):
+    """A GPT-2 XL pipeline through ``initialize()`` with ``extra`` config
+    (the mesh, ZeRO), the micro-batch split over the data ranks."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.gpt2_pipe import build_gpt2_pipeline
+    from deepspeed_tpu_torch.runtime.config_utils import resolve_tp_size
+
+    extra = dict(extra or {})
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    dp = world // resolve_tp_size(extra)
+    cfg = dt.GPT2Config.gpt2_large(num_hidden_layers=layers, hidden_dropout_prob=dropout,
+                                   attention_probs_dropout_prob=dropout)
+    module = build_gpt2_pipeline(cfg, num_stages=stages, partition_method="parameters",
+                                 base_seed=1234)
+    ds = {"train_batch_size": PIPE_MICRO * micro_batches,
+          "train_micro_batch_size_per_gpu": PIPE_MICRO // dp,
+          "gradient_accumulation_steps": micro_batches, "steps_per_print": 1000,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}, **extra}
+    if dtype_name == "bf16":
+        ds["bf16"] = {"enabled": True}
+    engine, _, _, _ = dt.initialize(model=module, config_params=ds, device=TP_DEVICE)
+    return engine
+
+
+def _ptp_rows(engine, data):
+    """This data rank's rows of every global micro-batch."""
+    from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS
+
+    dp, r = engine.dp_world_size, engine.mesh.rank(DATA_AXIS)
+    n = PIPE_MICRO // dp
+    return [(x[r * n:(r + 1) * n].to(TP_DEVICE), y[r * n:(r + 1) * n].to(TP_DEVICE))
+            for x, y in data]
+
+
+def _ptp_tap(engine):
+    """Keeps the first step's gradients as each rank steps them (per stage:
+    the reduced accumulators, or under ZeRO the reduced parts), on the
+    host; and, under ZeRO, the planted fault's: the part each data rank
+    would step if the reduce dropped the other rank's half."""
+    from deepspeed_tpu_torch.parallel.tp import local_part
+
+    keep = {}
+    update = engine._update
+    zero = engine._zero
+
+    def tap():
+        if "first" not in keep:
+            if zero is None:
+                keep["first"] = [[_par_copy(a) for a in acc] for acc in engine._acc]
+            else:
+                keep["planted"] = [[] if z is None else [
+                    _par_copy((a if d is None else local_part(a, d, z.dp_rank, z.dp)) / z.dp)
+                    for a, d in zip(z.acc_grads, z.dims)] for z in zero]
+                got = []
+                for z in zero:
+                    if z is None:
+                        got.append(None)
+                        continue
+                    reduce = z.reduce_gradients
+
+                    def once(reduce=reduce, slot=len(got)):
+                        g = reduce()
+                        keep.setdefault("first", [None] * len(zero))[slot] = \
+                            [_par_copy(t) for t in g]
+                        return g
+                    z.reduce_gradients = once
+                    got.append(reduce)
+                update()
+                for z, reduce in zip(zero, got):
+                    if z is not None:
+                        z.reduce_gradients = reduce
+                keep["first"] = [[] if f is None else f for f in keep["first"]]
+                return
+        update()
+
+    engine._update = tap
+    return keep
+
+
+def _ptp_grad_err(engine, got, want):
+    """Largest over the tensors of max |got - want| / max |want|: ``got`` a
+    rank's first-step gradients by stage, ``want`` the one-process run's
+    whole ones by name, cut to the same model and data part."""
+    from deepspeed_tpu_torch.parallel.tp import local_part
+
+    worst = 0.0
+    for s, grads in enumerate(got):
+        for i, (name, g) in enumerate(zip(engine._names[s], grads)):
+            w = engine._tp_part(want[name], s, i)
+            if engine._zero is not None and engine._zero[s].dims[i] is not None:
+                z = engine._zero[s]
+                w = local_part(w, z.dims[i], z.dp_rank, z.dp)
+            worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def _ptp_reference(root, name, dropout):
+    """The one-process run (the parent): losses, whole masters after the
+    steps, the first step's gradients, on file for the ranks; and the
+    masters' largest move (a tag of the initial weights reads that)."""
+    data = _pipe_batches(PTP_MICRO_BATCHES, seed=21)
+    engine = _ptp_engine(PTP_LAYERS, PTP_STAGES, "fp32", PTP_MICRO_BATCHES, dropout)
+    init = _par_host(engine.master_params())
+    tap = _ptp_tap(engine)
+    losses = [engine.train_batch(iter(_ptp_rows(engine, data))) for _ in range(PTP_STEPS)]
+    masters = _par_host(engine.master_params())
+    grads = {n: g for names, gs in zip(engine._names, tap["first"]) for n, g in zip(names, gs)}
+    torch.save(dict(losses=losses, masters=masters, grads=grads),
+               os.path.join(root, f"{name}.pt"))
+    moved = _par_max_diff(masters, init)
+    moved_share = _par_flips(init, masters)[0]
+    del engine, tap, grads, init
+    gc.collect()
+    return dict(losses=losses, moved=moved, moved_share=moved_share)
+
+
+def _ptp_equal_run(rank, root, label, want_name, extra, dropout, planted=None, tag=None):
+    """One mesh run against the one-process run ``want_name``: its checks'
+    readings (and their planted faults')."""
+    import deepspeed_tpu_torch as dt
+
+    data = _pipe_batches(PTP_MICRO_BATCHES, seed=21)
+    engine = _ptp_engine(PTP_LAYERS, PTP_STAGES, "fp32", PTP_MICRO_BATCHES, dropout, extra)
+    types = sorted({type(m).__name__ for layer in engine.module.get_layers()
+                    if isinstance(layer, torch.nn.Module) for m in layer.modules()})
+    out = dict(label=label, mp=engine.mp_world_size, dp=engine.dp_world_size,
+               megatron_layers="ColumnParallelLinear" in types and "Linear" not in types)
+    rows = _ptp_rows(engine, data)
+    if planted is not None:                 # the fault's gradients, no step taken
+        with planted():
+            g, _ = _pipe_barrier_grads(engine, rows)
+        out["planted_grad"] = {k: _par_copy(v) for k, v in g.items()}
+        del g
+    tap = _ptp_tap(engine)
+    dt.kernels.reset_launch_counts()
+    losses = [engine.train_batch(iter(rows)) for _ in range(PTP_STEPS)]
+    counts = dt.kernels.launch_counts()
+    _PAR_STORE.wait([want_name])              # the parent's run, beside the ranks'
+    want = torch.load(os.path.join(root, f"{want_name}.pt"))
+    scale = float(engine.micro_batches)
+    first = [[t / scale for t in s] for s in tap["first"]]
+    wgrads = {k: v / scale for k, v in want["grads"].items()}
+    out.update(losses=losses, want_losses=want["losses"],
+               grad_rel=_ptp_grad_err(engine, first, wgrads),
+               launches={k: counts[k] for k in FLASH_KERNELS},
+               want_launches={k: v * PTP_STEPS for k, v in
+                              _pipe_expected_launches(engine).items()})
+    if "planted_grad" in out:
+        pg = out.pop("planted_grad")
+        out["planted_grad_rel"] = _ptp_grad_err(
+            engine, [[pg[n] for n in names] for names in engine._names], wgrads)
+    elif "planted" in tap:
+        out["planted_grad_rel"] = _ptp_grad_err(
+            engine, [[t / scale for t in s] for s in tap["planted"]], wgrads)
+    masters = engine.master_params()
+    out["master_flip_share"], out["master_max_abs_diff"] = _par_flips(masters, want["masters"])
+    if tag is not None:
+        from deepspeed_tpu_torch.utils.zero_to_fp32 import (
+            get_fp32_state_dict_from_zero_checkpoint,
+        )
+        engine.save_checkpoint(tag, tag="t")
+        if rank == 0:
+            layers = get_fp32_state_dict_from_zero_checkpoint(tag, "t")["layers"]
+            sd = {f"layer_{i:02d}.{k}": v for i, layer in enumerate(layers) if layer
+                  for k, v in layer.items()}
+            out["zero_to_fp32_abs"] = _par_max_diff(masters, sd)
+            torch.save(_par_host(masters), os.path.join(root, "ptp_tag_masters.pt"))
+    del engine, masters, want
+    gc.collect()
+    torch.cuda.empty_cache() if TP_DEVICE == "cuda" else None
+    return out
+
+
+def _ptp_timed(rank):
+    """bf16 at 12 blocks as 4 stages, TP 2, dropout 0.1: a warm-up and a
+    timed step; step ms, tokens/s, peak memory a rank, the flash launches
+    a step against the schedule's count."""
+    import deepspeed_tpu_torch as dt
+
+    data = _pipe_batches(PTP_TIMED_MICRO_BATCHES, seed=12)
+    engine = _ptp_engine(PTP_TIMED_LAYERS, PTP_TIMED_STAGES, "bf16", PTP_TIMED_MICRO_BATCHES,
+                         PIPE_DROPOUT, {"tensor_parallel": {"size": 2}})
+    rows = _ptp_rows(engine, data)
+    losses = [engine.train_batch(iter(rows)) for _ in range(PTP_WARMUP)]
+    torch.cuda.synchronize() if TP_DEVICE == "cuda" else None
+    torch.cuda.reset_peak_memory_stats() if TP_DEVICE == "cuda" else None
+    staged0 = dict(_comm_staged())
+    dt.kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(iter(rows)) for _ in range(PTP_TIMED_STEPS)]
+    torch.cuda.synchronize() if TP_DEVICE == "cuda" else None
+    wall = time.perf_counter() - t0
+    counts = dt.kernels.launch_counts()
+    staged = {k: (_comm_staged()[k] - staged0[k]) / PTP_TIMED_STEPS for k in staged0}
+    res = dict(model=f"gpt2_large, {PTP_TIMED_LAYERS} blocks, {PTP_TIMED_STAGES} stages, bf16 + "
+                     f"fp32 masters, Adam lr 1e-4, dropout {PIPE_DROPOUT}, TP 2",
+               micro_batches=PTP_TIMED_MICRO_BATCHES, micro_batch=PIPE_MICRO, seq=PIPE_SEQ,
+               step_ms=1e3 * wall / PTP_TIMED_STEPS,
+               tokens_per_s=PIPE_MICRO * PTP_TIMED_MICRO_BATCHES * PIPE_SEQ * PTP_TIMED_STEPS
+               / wall,
+               peak_mem_gb=(torch.cuda.max_memory_allocated() / 2**30
+                            if TP_DEVICE == "cuda" else None),
+               losses=losses, launches_per_step={k: counts[k] / PTP_TIMED_STEPS
+                                                 for k in FLASH_KERNELS},
+               want_per_step=_pipe_expected_launches(engine),
+               host_staged_per_step=staged)
+    del engine
+    gc.collect()
+    return res
+
+
+def _ptp_worker2(rank, world, root):
+    """TP 2 (dropout 0.1) against the one-process run beside the world-4
+    ranks' work, then, once they are done, the bf16 timed run."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    eq = _ptp_equal_run(rank, root, "TP 2", "ptp_drop", {"tensor_parallel": {"size": 2}},
+                        PIPE_DROPOUT, planted=_NoModelReduce)
+    torch.use_deterministic_algorithms(False)
+    _PAR_STORE.wait([f"ptp_w4_done_{r}" for r in range(4)])
+    t1 = time.perf_counter()
+    timed = _ptp_timed(rank)
+    return dict(equal=eq, timed=timed,
+                seconds=dict(equal=t1 - t0, timed=time.perf_counter() - t1))
+
+
+def _ptp_worker4(rank, world, root):
+    """data 2 x TP 2 with ZeRO-1 (its tag saved) and ZeRO-2, dropout 0."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    mesh = {"tensor_parallel": {"size": 2}, "mesh": {"data_parallel_size": 2}}
+    out = dict(
+        zero1=_ptp_equal_run(rank, root, "dp 2 x TP 2 ZeRO-1", "ptp_nodrop",
+                             dict(mesh, zero_optimization={"stage": 1}), 0.0,
+                             tag=os.path.join(root, "ptp_tag")),
+        zero2=_ptp_equal_run(rank, root, "dp 2 x TP 2 ZeRO-2", "ptp_nodrop",
+                             dict(mesh, zero_optimization={"stage": 2}), 0.0))
+    out["seconds"] = time.perf_counter() - t0
+    _PAR_STORE.set(f"ptp_w4_done_{rank}", "1")
+    return out
+
+
+def _ptp_tp1_load(root):
+    """The ZeRO-1 tag at one process without ZeRO: the loaded masters (and a
+    fresh engine's, the reading of a load of nothing) against the tag's."""
+    engine = _ptp_engine(PTP_LAYERS, PTP_STAGES, "fp32", PTP_MICRO_BATCHES, 0.0)
+    tag = torch.load(os.path.join(root, "ptp_tag_masters.pt"))
+    fresh = _par_max_diff(engine.master_params(), tag)
+    engine.load_checkpoint(os.path.join(root, "ptp_tag"), tag="t")
+    loaded = _par_max_diff(engine.master_params(), tag)
+    del engine, tag
+    gc.collect()
+    return dict(loaded_abs=loaded, fresh_abs=fresh)
+
+
+def _pipe_tp(root):
+    """(d): the world-2 and world-4 ranks start together and run their
+    checks side by side while the parent runs the one-process references
+    (each rank waits for its reference's key before it reads it); the
+    world-2 ranks time bf16 once the world-4 ranks are done; the parent
+    loads the ZeRO-1 tag at last."""
+    t0 = time.perf_counter()
+    store = _par_store()
+    ctx2 = _par_start(2, _ptp_worker2, root, store.port)
+    ctx4 = _par_start(4, _ptp_worker4, root, store.port)
+    try:
+        torch.use_deterministic_algorithms(True)
+        ref = {}
+        for name, dropout in (("ptp_drop", PIPE_DROPOUT), ("ptp_nodrop", 0.0)):
+            ref[name] = _ptp_reference(root, name, dropout)
+            store.set(name, "1")
+        torch.use_deterministic_algorithms(False)
+        gc.collect()
+        torch.cuda.empty_cache() if TP_DEVICE == "cuda" else None
+        w4 = _par_join(ctx4, 4, root)
+        w2 = _par_join(ctx2, 2, root)
+    finally:
+        for p in ctx2.processes + ctx4.processes:
+            if p.is_alive():
+                p.kill()
+        del store
+    torch.use_deterministic_algorithms(True)
+    load = _ptp_tp1_load(root)
+    torch.use_deterministic_algorithms(False)
+    rel = lambda got, want: max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    checks = {}
+    runs = [("tp2", [r["equal"] for r in w2], "ptp_drop"),
+            ("zero1", [r["zero1"] for r in w4], "ptp_nodrop"),
+            ("zero2", [r["zero2"] for r in w4], "ptp_nodrop")]
+    for key, ranks, ref_name in runs:
+        want = ref[ref_name]["losses"]
+        dp = ranks[0]["dp"]
+        losses = np.mean([ranks[r]["losses"] for r in range(0, len(ranks), 2)], axis=0) \
+            if dp > 1 else ranks[0]["losses"]
+        # planted: the reference's losses one step late
+        checks[f"{key}_loss_rel"] = (rel(losses, want), PAR_TOL, rel(want[1:], want[:-1]))
+        checks[f"{key}_grad_rel"] = (max(r["grad_rel"] for r in ranks), PAR_GRAD_TOL,
+                                     max(r["planted_grad_rel"] for r in ranks))
+        # planted: the initial weights, read against the reference's masters
+        checks[f"{key}_master_flip_share"] = (max(r["master_flip_share"] for r in ranks),
+                                              PAR_FLIP_SHARE, ref[ref_name]["moved_share"])
+    checks["zero1_zero_to_fp32_abs"] = (w4[0]["zero1"]["zero_to_fp32_abs"], 0.0,
+                                        ref["ptp_nodrop"]["moved"])
+    checks["zero1_tag_at_one_process_abs"] = (load["loaded_abs"], 0.0, load["fresh_abs"])
+    print("pipe_tp_checks", json.dumps(checks), flush=True)
+    failures = [f"{k}: {v}" for k, v in checks.items() if not v[0] <= v[1]]
+    failures += [f"{k} is blind to its planted fault: {v}" for k, v in checks.items()
+                 if v[2] is not None and not v[2] > v[1]]
+    for key, ranks, _ in runs:
+        for r in ranks:
+            if not r["megatron_layers"]:
+                failures.append(f"{key}: stage layers are not Megatron layers")
+            if TP_DEVICE == "cuda" and r["launches"] != r["want_launches"]:
+                failures.append(f"{key}: flash launches {r['launches']}, the schedule's "
+                                f"{r['want_launches']}")
+    timed = [r["timed"] for r in w2]
+    for t in timed:
+        if TP_DEVICE == "cuda" and t["launches_per_step"] != t["want_per_step"]:
+            failures.append(f"timed: flash launches a step {t['launches_per_step']}, the "
+                            f"schedule's {t['want_per_step']}")
+        if not all(np.isfinite(t["losses"])):
+            failures.append(f"timed: a loss is not finite: {t['losses']}")
+    if failures:
+        raise RuntimeError("pipe (d): " + "; ".join(failures))
+    return dict(
+        model=f"gpt2_large width, {PTP_LAYERS} of 36 blocks, {PTP_STAGES} stages, fp32, "
+              f"{PTP_MICRO_BATCHES} micro-batches of {PIPE_MICRO}, Adam lr 1e-4, "
+              f"{PTP_STEPS} steps; TP 2 at dropout {PIPE_DROPOUT}, dp 2 x TP 2 at dropout 0",
+        note="gloo on one card: collectives stage CUDA tensors through host memory",
+        checks={k: dict(reading=v[0], bound=v[1], planted=v[2]) for k, v in checks.items()},
+        reference_losses={k: v["losses"] for k, v in ref.items()},
+        losses={key: [r["losses"] for r in ranks] for key, ranks, _ in runs},
+        launches={key: ranks[0]["launches"] for key, ranks, _ in runs},
+        timed=timed, seconds=dict(w2=[r["seconds"] for r in w2],
+                                  w4=[r["seconds"] for r in w4],
+                                  phase=time.perf_counter() - t0))
+
+
+# -- phase 16 (g): an expert-parallel MoELayer under initialize() -----------
+PAR_MOE_ENGINE = dict(batch=8, seq=512, steps=3, lr=1e-4)
+
+
+class _MoENet(torch.nn.Module):
+    """Dense(d -> d), a Switch-Base-8-width MoELayer (8 experts, d 768, f
+    3072) and Dense(d -> d), MSE; capacity 8 x the even share (no token
+    drops on any rank) and no aux loss (a rank's aux averaged over the ranks
+    is not the whole batch's). Weights from torch.manual_seed(0) on the CPU,
+    alike in every process."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.parallel.expert import MoEConfig, MoELayer
+
+        super().__init__()
+        m = PAR_MOE
+        torch.manual_seed(0)
+        self.inp = torch.nn.Linear(m["d_model"], m["d_model"])
+        self.moe = MoELayer(MoEConfig(num_experts=m["experts"], d_model=m["d_model"],
+                                      d_ff=m["d_ff"], capacity_factor=float(m["experts"])))
+        self.out = torch.nn.Linear(m["d_model"], m["d_model"])
+
+    def forward(self, x, y):
+        h, _ = self.moe(self.inp(x))
+        return ((self.out(h) - y) ** 2).mean()
+
+
+def _par_moe_engine_run(world=1, rank=0, planted=False):
+    """3 Adam steps of ``_MoENet`` through ``initialize()`` on this rank's
+    rows of one global batch, the experts split over the world when it has
+    more than one rank. ``planted``: the expert gradients averaged over the
+    data group like every other (the fault the engine must not make).
+    Returns the losses and the whole masters on the host."""
+    import deepspeed_tpu_torch as dt
+
+    e = PAR_MOE_ENGINE
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(e["batch"], e["seq"], PAR_MOE["d_model"], generator=g)
+    y = torch.randn(e["batch"], e["seq"], PAR_MOE["d_model"], generator=g)
+    rows = e["batch"] // world
+    model = _MoENet()
+    if world > 1:
+        model.moe.shard_experts(torch.distributed.group.WORLD)
+    engine, _, _, _ = dt.initialize(model=model, config={
+        "train_batch_size": e["batch"], "train_micro_batch_size_per_gpu": rows,
+        "steps_per_print": 1000, "optimizer": {"type": "Adam", "params": {"lr": e["lr"]}}},
+        device=PAR_DEVICE)
+    if planted:
+        engine._step_optimizer.experts = {}
+    xs = x[rank * rows:(rank + 1) * rows].to(PAR_DEVICE)
+    ys = y[rank * rows:(rank + 1) * rows].to(PAR_DEVICE)
+    losses = []
+    for _ in range(e["steps"]):
+        loss = engine(xs, ys)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss))
+    if planted:           # whole masters need the expert group's gather back
+        engine._step_optimizer.experts = {
+            i: model.moe.group for i, n in enumerate(engine._param_names)
+            if n.startswith("moe.") and n != "moe.router"}
+    masters = _par_host(engine.master_params())
+    del engine, model
+    gc.collect()
+    return dict(losses=losses, masters=masters)
+
+
+def _par_moe_engine(rank, world):
+    """(g) at dp 2: the sound run and the planted one."""
+    t0 = time.perf_counter()
+    sound = _par_moe_engine_run(world, rank)
+    planted = _par_moe_engine_run(world, rank, planted=True)
+    return dict(losses=sound["losses"], masters=sound["masters"] if rank == 0 else None,
+                planted_losses=planted["losses"],
+                planted_masters=planted["masters"] if rank == 0 else None,
+                seconds=time.perf_counter() - t0)
 
 
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad", "zero", "ckpt", "resil",
-          "pld", "serve6", "fleet", "sparse", "pipe", "parallel")
+          "pld", "serve6", "fleet", "sparse", "pipe", "parallel", "serve_tp")
 
 
 def _report(tag, result):
@@ -4742,6 +5580,8 @@ def main():
         pipe = _phase("pipe", phase_pipe, timer)
     if "parallel" in phases:
         parallel = _report("parallel", _phase("parallel", phase_parallel))
+    if "serve_tp" in phases:
+        serve_tp = _report("serve_tp", _phase("serve_tp", phase_serve_tp, timer))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -4767,6 +5607,12 @@ def main():
                             fleet["disagg_fp32"]["replicas"].items()},
             # phase 15 c: generate() on the model converted from a pipeline tag
             pipe_launches=pipe["equal"]["serve"]["launches"][name],
+            # phase 17: each rank's launches over its 10 heads at TP 2, fp32
+            # (a plain pass) and bf16 (the warm-up and the timed pass)
+            serve_tp_launches_per_rank={
+                f"fp32_{STP_LAYERS}_layers": [r[name] for r in serve_tp["launches"]["plain"]],
+                f"bf16_{STP_TIMED_LAYERS}_layers":
+                    [r[name] for r in serve_tp["launches"]["timed"]]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
@@ -4799,6 +5645,13 @@ def main():
                 slice_launches["parallel_launches_per_rank_step"] = dict(
                     fp32_4_layers=parallel["a"]["ranks"][0]["launches_per_step"][name],
                     bf16_24_layers=parallel["c"]["ranks"][0]["launches_per_step"][name])
+                # phase 15 (d): a rank's launches under the pipeline at TP 2 (the
+                # fp32 run's steps, and a bf16 step)
+                slice_launches["pipe_tp_launches_per_rank"] = {
+                    f"fp32_{PTP_LAYERS}_blocks_{PTP_STEPS}_steps":
+                        pipe["tp"]["launches"]["tp2"][name],
+                    f"bf16_{PTP_TIMED_LAYERS}_blocks_per_step":
+                        pipe["tp"]["timed"][0]["launches_per_step"][name]}
             entries.append(dict(
                 name=name + suffix, route="cuda", source=source, replaces=replaces,
                 launches=run["launches"][name], **slice_launches,
@@ -4864,7 +5717,7 @@ def main():
                            train=trained, train_fp16=trained_fp16,
                            grad_oracle=grad_oracle, zero=zero, ckpt=ckpt, resil=resil,
                            pld=pld, serve6=serve6, fleet=fleet, sparse=sparse, pipe=pipe,
-                           parallel=parallel,
+                           parallel=parallel, serve_tp=serve_tp,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)

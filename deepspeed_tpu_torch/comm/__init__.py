@@ -14,6 +14,7 @@ from deepspeed_tpu_torch.comm.comm import (
     all_to_all_autograd,
     barrier,
     broadcast,
+    broadcast_object,
     control_group,
     copy_to_model_region,
     forget_timeout,
@@ -43,6 +44,7 @@ __all__ = [
     "all_to_all_autograd",
     "barrier",
     "broadcast",
+    "broadcast_object",
     "control_group",
     "copy_to_model_region",
     "forget_timeout",

@@ -288,6 +288,18 @@ def broadcast(x, group, root=0):
     return out
 
 
+def broadcast_object(obj, group, root=0):
+    """Every rank takes the picklable ``obj`` of group rank ``root`` (a
+    host-side collective: ``group`` is a gloo group, such as the control
+    group)."""
+    if group_size(group) == 1:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(
+        box, src=torch.distributed.get_global_rank(group, int(root)), group=group)
+    return box[0]
+
+
 def all_to_all(x, group, split_axis, concat_axis):
     """``jax.lax.all_to_all(..., tiled=True)``: ``split_axis`` is cut into
     as many parts as ranks, part j goes to rank j, and the parts received

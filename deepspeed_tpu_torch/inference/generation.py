@@ -27,6 +27,12 @@ matmul a single row: on the CPU a one-row product takes a matrix-vector
 path that rounds differently from the matrix path, and the
 continuous-vs-``generate()`` oracle needs a row's bits not to depend on
 how many rows ride with it.
+
+On a tensor-parallel serving mesh the layers' projections are Megatron
+layers (``parallel/tp.py``): qkv and ff1 give this rank's columns, so the
+helpers split qkv into three equal sections and size a head from them,
+and ``_proj`` all-reduces a row-parallel product over the model group
+before adding its bias once. Callers pass the rank's head count.
 """
 
 import math
@@ -34,7 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch import kernels
+from deepspeed_tpu_torch import comm, kernels
 from deepspeed_tpu_torch.inference.quantization import (
     embed_rows,
     logits_table,
@@ -48,6 +54,7 @@ from deepspeed_tpu_torch.kernels.sparse_attention import (
     _window_slice_one,
 )
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
+from deepspeed_tpu_torch.parallel.tp import RowParallelLinear
 
 ATTENTION_IMPLS = ("dense", "flash", "sparse_xla",
                    "pallas_decode", "pallas_sparse")
@@ -115,25 +122,30 @@ def _linear(x, weight, bias=None):
 
 
 def _proj(x, lin):
+    if isinstance(lin, RowParallelLinear):
+        # this rank's input features: the partial product is all-reduced
+        # over the model group and the bias added once, after the sum
+        y = comm.reduce_from_model_region(_linear(x, lin.weight), lin.group)
+        return y if lin.bias is None else y + lin.bias
     return _linear(x, maybe_dequant(lin), lin.bias)
+
+
+def _qkv_heads(layer, h, nh):
+    """The fused qkv projection of h [..., H] as q, k, v each [..., nh,
+    hd]: three equal sections of the product (this rank's heads on a
+    tensor-parallel mesh), hd from a section's width."""
+    q, k, v = _proj(_ln(h, layer.ln_attn), layer.qkv).chunk(3, dim=-1)
+    shape = (*q.shape[:-1], nh, q.shape[-1] // nh)
+    return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
 
 def _logits(model, h):
     return _linear(_ln(h, model.ln_f), logits_table(model.wte, h.dtype))
 
 
-def _window_qkv(layer, h, nh):
-    """The fused qkv projection for one token per lane: h [B, H] ->
-    q, k, v each [B, nh, hd]."""
-    B, H = h.shape
-    q, k, v = _proj(_ln(h, layer.ln_attn), layer.qkv).split(H, dim=-1)
-    return (q.reshape(B, nh, H // nh), k.reshape(B, nh, H // nh),
-            v.reshape(B, nh, H // nh))
-
-
 def _window_finish(layer, h, ctx):
     """attn_out projection + residual + FFN: h [..., H], ctx [..., nh, hd]."""
-    h = h + _proj(ctx.reshape(h.shape), layer.attn_out)
+    h = h + _proj(ctx.reshape(*h.shape[:-1], -1), layer.attn_out)
     f = F.gelu(_proj(_ln(h, layer.ln_ffn), layer.ff1))
     return h + _proj(f, layer.ff2)
 
@@ -149,7 +161,7 @@ def _write_rows(cache_k, cache_v, k, v, pos):
 def _decode_one(layer, h, cache_k, cache_v, pos, nh):
     """One token per lane through one layer against its cache (dense
     attention): h [B, H]; caches [B, nh, S, hd]; pos [B]."""
-    q, k, v = _window_qkv(layer, h, nh)
+    q, k, v = _qkv_heads(layer, h, nh)
     _write_rows(cache_k, cache_v, k, v, pos)
     hd = q.shape[-1]
     S = cache_k.shape[2]
@@ -165,7 +177,7 @@ def _decode_one(layer, h, cache_k, cache_v, pos, nh):
 def _decode_one_kernel(layer, h, cache_k, cache_v, pos, nh, pt):
     """`_decode_one` with the paged decode-attention kernel at C = 1 over
     the cache viewed as identity-mapped pages."""
-    q, k, v = _window_qkv(layer, h, nh)
+    q, k, v = _qkv_heads(layer, h, nh)
     _write_rows(cache_k, cache_v, k, v, pos)
     ctx = kernels.chunk_attend(q[:, None], cache_k, cache_v, pos[:, None], pt,
                                h.dtype)[:, 0]
@@ -175,7 +187,7 @@ def _decode_one_kernel(layer, h, cache_k, cache_v, pos, nh, pt):
 def _decode_one_window_kernel(layer, h, cache_k, cache_v, pos, nh, pt):
     """`_decode_one` with the band kernel: each lane attends its canonical
     window plus the anchor page."""
-    q, k, v = _window_qkv(layer, h, nh)
+    q, k, v = _qkv_heads(layer, h, nh)
     _write_rows(cache_k, cache_v, k, v, pos)
     ctx = kernels.chunk_band_attend(q[:, None], cache_k, cache_v,
                                     pos[:, None], pt, h.dtype)[:, 0]
@@ -210,7 +222,7 @@ def _chunk_attend_window(q, cache_k, cache_v, qpos, pt, dtype):
 
 def _decode_one_window(layer, h, cache_k, cache_v, pos, nh, pt):
     """`_decode_one` with the window backend in composed ops."""
-    q, k, v = _window_qkv(layer, h, nh)
+    q, k, v = _qkv_heads(layer, h, nh)
     _write_rows(cache_k, cache_v, k, v, pos)
     ctx = _window_attend(q[:, None], cache_k, cache_v, pos[:, None], pt, h.dtype)[:, 0]
     return _window_finish(layer, h, ctx)
@@ -322,13 +334,10 @@ def _chunk_layer(layer, h, cache_k, cache_v, rows, qpos, nh, attend):
     """A chunk of positions through one layer: qkv, the cache writes of
     ``rows`` (from `_chunk_rows`), then every query attends the cache
     under ``attend(q, cache_k, cache_v, qpos)``."""
-    B, C, H = h.shape
-    hd = H // nh
-    q, k, v = _proj(_ln(h, layer.ln_attn), layer.qkv).split(H, dim=-1)
-    q = q.reshape(B, C, nh, hd)
+    q, k, v = _qkv_heads(layer, h, nh)
     lanes, cols, idx = rows
-    cache_k[lanes, :, cols] = k.reshape(B, C, nh, hd)[lanes, idx].to(cache_k.dtype)
-    cache_v[lanes, :, cols] = v.reshape(B, C, nh, hd)[lanes, idx].to(cache_v.dtype)
+    cache_k[lanes, :, cols] = k[lanes, idx].to(cache_k.dtype)
+    cache_v[lanes, :, cols] = v[lanes, idx].to(cache_v.dtype)
     ctx = attend(q, cache_k, cache_v, qpos)
     return _window_finish(layer, h, ctx)
 

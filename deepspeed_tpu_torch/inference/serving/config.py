@@ -4,9 +4,9 @@ rollout, roles, handoff), the ``fleet`` block's.
 
 Same fields and defaults as ``deepspeed_tpu/inference/serving/config.py``,
 so a config carries over between the two packages. The tensor-parallel
-mesh knobs raise NotImplementedError at engine construction when set
-(see ``UNPORTED_KNOBS``), and the TPU-only kernel knobs
-(``attention_kernel``, ``kernel_interpret``) accept only None.
+mesh knobs (``mesh_shape``, ``partition_rules``, ``replicate_unmatched``)
+arm the engine's serving mesh, one process a rank; the TPU-only kernel
+knobs (``attention_kernel``, ``kernel_interpret``) accept only None.
 """
 
 from dataclasses import dataclass, field
@@ -58,8 +58,14 @@ class ServingConfig:
     # Total KV-pool token budget shared by all lanes. None =
     # max_slots * max_seq_len.
     kv_pool_tokens: int = None
+    # Tensor-parallel mesh shape as (data, model), e.g. (1, 2): one process
+    # a rank, each holding its heads of the layers and of the KV pool.
+    # None = the single-device engine.
     mesh_shape: tuple = None
+    # Ordered (path-regex, spec-elements) overrides consulted before the
+    # registry's built-in SERVING_PARTITION_RULES (first match wins).
     partition_rules: tuple = None
+    # Unmatched param-tree paths replicate instead of raising.
     replicate_unmatched: bool = True
 
 
@@ -266,9 +272,3 @@ class FleetConfig:
     roles: RolesConfig = field(default_factory=RolesConfig)
     handoff: HandoffConfig = field(default_factory=HandoffConfig)
 
-
-# knob -> (its default, the ROADMAP entry that ports it)
-UNPORTED_KNOBS = {
-    "mesh_shape": (None, "the serving engine on a tensor-parallel mesh, slice 8c"),
-    "partition_rules": (None, "the serving engine on a tensor-parallel mesh, slice 8c"),
-}

@@ -60,10 +60,30 @@ kernels snapshots and a ``serving_loop`` health provider), evaluates the
 SLO engine at the end of every step from host values only, and writes
 ``trace_file`` on ``close()``.
 
-Left out (ROADMAP.md): the tensor-parallel mesh, the monitor and the
-compile sentinels.
+Tensor-parallel mesh (``serving.mesh_shape`` or a ``parallel`` block):
+one process a rank, SPMD. Every rank builds the same engine from the
+same whole model; the engine puts Megatron layers in place of each
+block's qkv/ff1 (columns) and attn_out/ff2 (rows) under the serving
+registry's rules (``partition_rules`` may restate them, never move
+them), keeps the embeddings and the LM head replicated, and holds
+``n_heads / model`` heads of every KV page. The decode and band kernels
+run over a rank's heads; the row-parallel products are all-reduced over
+the model group. The lanes are the same on every rank, which is kept so
+by rank 0 of the mesh deciding each step: at the top of ``step()`` it
+broadcasts a plan (the requests submitted since the last step, the
+step's clock for every deadline decision, the degrade rung) and every
+rank applies it; the tokens a step chooses (prefill's first tokens, the
+decode and speculative steps' tokens) are rank 0's, broadcast. Requests
+are submitted on rank 0, whose futures and streams resolve; the other
+ranks run ``follow()`` until rank 0's ``close()``.
+
+Left out (ROADMAP.md): the monitor and the compile sentinels; on a mesh,
+the KV handoff, fault injection, the memory-pressure guard and int8
+weights.
 """
 
+import dataclasses
+import os
 import queue as _queue_mod
 import threading
 import time
@@ -71,7 +91,7 @@ import time
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import kernels, telemetry
+from deepspeed_tpu_torch import comm, kernels, telemetry
 from deepspeed_tpu_torch.inference.generation import (
     ATTENTION_IMPLS,
     DEFAULT_PAGE_TOKENS,
@@ -86,11 +106,9 @@ from deepspeed_tpu_torch.inference.generation import (
     _forward_chunk,
     _logits,
     _ngram_draft,
-    _proj,
-    _ln,
+    _qkv_heads,
     _round_up,
     _window_finish,
-    _window_qkv,
     check_impl,
     check_tpu_knob,
     model_device,
@@ -98,14 +116,12 @@ from deepspeed_tpu_torch.inference.generation import (
 )
 from deepspeed_tpu_torch.inference.quantization import (
     dequantize_kv,
+    is_quantized,
     quantize_kv,
     requantize_kv,
     vocab_size,
 )
-from deepspeed_tpu_torch.inference.serving.config import (
-    UNPORTED_KNOBS,
-    ServingConfig,
-)
+from deepspeed_tpu_torch.inference.serving.config import ServingConfig
 from deepspeed_tpu_torch.inference.serving.degrade import DegradeLadder
 from deepspeed_tpu_torch.inference.serving.fault_injection import ServingFaultInjector
 from deepspeed_tpu_torch.inference.serving.kv_pool import (
@@ -123,12 +139,21 @@ from deepspeed_tpu_torch.inference.serving.scheduler import (
     ContinuousBatchingScheduler,
     EngineDrainingError,
     QueueFullError,
+    Request,
     RequestTimeoutError,
     bucket_for,
     default_buckets,
 )
 from deepspeed_tpu_torch.kernels import sparse_attention as _sa
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
+from deepspeed_tpu_torch.parallel import tp as _tp
+from deepspeed_tpu_torch.parallel.mesh import mp_world_size
+from deepspeed_tpu_torch.parallel.sharding_registry import (
+    SERVING_TP_RULES,
+    check_serving_placement,
+    create_serving_mesh,
+    serving_registry,
+)
 
 
 def _submitted_at(age_s):
@@ -275,7 +300,7 @@ def _decode_step_kernel(model, pool, page_tables, tokens, positions, active,
     qpos = positions[:, None]
     P = pool.k.shape[1]
     for l, layer in enumerate(model.layers):
-        q, kk, vv = _window_qkv(layer, h, n_heads)
+        q, kk, vv = _qkv_heads(layer, h, n_heads)
         sk = pool.k_scale[l] if qmode == "int8" else None
         sv = pool.v_scale[l] if qmode == "int8" else None
         pk_l, pv_l = pool.k[l], pool.v[l]
@@ -310,7 +335,7 @@ def _decode_step_window(model, pool, page_tables, tokens, positions, active,
     dp = _row_pages(page_tables, positions, active, pt)
     off = positions % pt
     for l, layer in enumerate(model.layers):
-        q, kk, vv = _window_qkv(layer, h, n_heads)
+        q, kk, vv = _qkv_heads(layer, h, n_heads)
         sk = pool.k_scale[l] if qmode == "int8" else None
         sv = pool.v_scale[l] if qmode == "int8" else None
         pk_l, pv_l = pool.k[l], pool.v[l]
@@ -394,10 +419,7 @@ def _spec_step(model, pool, page_tables, history, tokens, positions, positions_h
             pk_l[dp, :, off] = _stored(_rows_at(ck, qpos), qmode, sk)
             pv_l[dp, :, off] = _stored(_rows_at(cv, qpos), qmode, sv)
             continue
-        H = h.shape[-1]
-        q, kk, vv = _proj(_ln(h, layer.ln_attn), layer.qkv).split(H, dim=-1)
-        shape = (B, C, n_heads, H // n_heads)
-        q, kk, vv = q.reshape(shape), kk.reshape(shape), vv.reshape(shape)
+        q, kk, vv = _qkv_heads(layer, h, n_heads)
         pk_l[dp, :, off] = _stored(kk, qmode, sk)
         pv_l[dp, :, off] = _stored(vv, qmode, sv)
         if lane_class == "pallas_decode":
@@ -504,11 +526,6 @@ class ServingEngine:
         self.n_heads = model_config.num_attention_heads
         self.head_dim = model_config.hidden_size // self.n_heads
 
-        for knob, (default, entry) in UNPORTED_KNOBS.items():
-            if getattr(cfg, knob) != default:
-                raise NotImplementedError(
-                    f"serving.{knob}={getattr(cfg, knob)!r}: {entry} is not "
-                    f"ported yet (ROADMAP.md)")
         check_tpu_knob("serving.attention_kernel", cfg.attention_kernel)
         check_tpu_knob("serving.kernel_interpret", cfg.kernel_interpret)
 
@@ -537,13 +554,27 @@ class ServingEngine:
                 f"{self.max_seq_len} < {(SPARSE_BAND + 1) * page_tokens} "
                 f"(kv_page_tokens={page_tokens})")
 
+        # the tensor-parallel mesh: None keeps the single-device engine
+        self.mesh = None
+        self.registry = None
+        self._lockstep = False      # more than one rank: steps follow plans
+        self._lead = True           # this rank plans each step
+        self._plan = None
+        self._inbox = []            # rank 0's requests since the last plan
+        self._inbox_lock = threading.Lock()
+        self._stopped = False
+        if cfg.mesh_shape is not None:
+            self._arm_mesh(model, cfg, injector)
+        self.local_heads = self.n_heads // (mp_world_size(self.mesh) if self.mesh else 1)
+
         dtype = _cache_dtype(model)
         self.pool = KVCachePool(self.n_layers, cfg.max_slots, self.n_heads,
                                 self.max_seq_len, self.head_dim, dtype=dtype,
                                 kv_cache_dtype=cfg.kv_cache_dtype,
                                 page_tokens=cfg.kv_page_tokens,
                                 pool_tokens=cfg.kv_pool_tokens,
-                                device=self.device)
+                                device=self.device,
+                                model_parallel=self.n_heads // self.local_heads)
         # storage <-> compute conversion the decode steps need: None when
         # the pool stores the compute dtype (fp32, or bf16 on a bf16 model)
         if cfg.kv_cache_dtype == "int8":
@@ -566,10 +597,14 @@ class ServingEngine:
         if injector is None and cfg.fault_injection:
             injector = ServingFaultInjector(cfg.fault_injection)
         self.injector = injector
+        spill_dir = cfg.prefix_spill_dir
+        if spill_dir is not None and self._lockstep:
+            # a rank's blobs hold its heads: one directory a rank
+            spill_dir = os.path.join(spill_dir, f"rank{comm.group_rank(self._plan_group)}")
         self.prefix_cache = (
             PrefixKVCache(max(1, int(cfg.prefix_cache_mb * 2 ** 20)),
                           spill_budget_bytes=int(cfg.prefix_spill_mb * 2 ** 20),
-                          spill_dir=cfg.prefix_spill_dir,
+                          spill_dir=spill_dir,
                           listener=self._on_spill_event)
             if cfg.prefix_cache_mb > 0 else None)
         if self.prefix_cache is not None and self.prefix_cache.spill is not None:
@@ -632,7 +667,9 @@ class ServingEngine:
         self._trace_file = None
         self.telemetry_server = None
         self.slo = None
-        if telemetry_config is not None and telemetry_config.enabled:
+        # on a mesh rank 0 serves the endpoint and judges the SLOs: the
+        # others hold no request a client sees
+        if telemetry_config is not None and telemetry_config.enabled and self._lead:
             reg = telemetry.get_registry()
             self._trace_file = telemetry_config.trace_file
             self.metrics.export_to(reg)
@@ -654,6 +691,89 @@ class ServingEngine:
                 telemetry_config, tracer=self._tracer, registry=reg)
             if self.slo is not None and self.telemetry_server is not None:
                 self.slo.attach(self.telemetry_server)
+
+    # -- tensor-parallel mesh -------------------------------------------
+    def _arm_mesh(self, model, cfg, injector):
+        """Build the serving mesh over the running ranks, hold the rules to
+        the placements the port runs, and put Megatron layers in place of
+        the blocks' projections (embeddings and LM head replicated)."""
+        self.registry = serving_registry(extra_rules=cfg.partition_rules,
+                                         replicate_unmatched=cfg.replicate_unmatched)
+        self.mesh = create_serving_mesh(cfg.mesh_shape)
+        self.registry.validate_axes(self.mesh)
+        mp = mp_world_size(self.mesh)
+        if self.n_heads % mp != 0:
+            raise ValueError(
+                f"serving.mesh_shape model axis {mp} must divide "
+                f"num_attention_heads={self.n_heads} (the KV pool "
+                f"shards heads)")
+        check_serving_placement(self.registry, model)
+        refused = [what for what, on in (
+            ("serving.fault_injection", injector is not None or cfg.fault_injection),
+            ("serving.host_mem_watermark_mb", cfg.host_mem_watermark_mb > 0),
+            ("int8 weights (quantize_for_decode)",
+             is_quantized(model.wte) or any(is_quantized(getattr(layer, n))
+                                            for layer in model.layers
+                                            for n in ("qkv", "attn_out", "ff1", "ff2"))),
+        ) if on]
+        if refused and mp > 1:
+            raise NotImplementedError(
+                f"{', '.join(refused)} on a serving mesh: not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md, queue 1)")
+        _tp.shard_params(model, self.mesh, rules=SERVING_TP_RULES)
+        self._plan_group = comm.control_group() if torch.distributed.is_initialized() else None
+        self._lockstep = comm.group_size(self._plan_group) > 1
+        self._lead = comm.group_rank(self._plan_group) == 0
+
+    def _exchange_plan(self, now, stop=False):
+        """Rank 0 plans the step and every rank takes its plan: the requests
+        submitted since the last plan (rank 0's own objects, rebuilt from
+        their fields elsewhere), the clock every deadline decision of the
+        step reads, and the degrade rung. Returns the plan."""
+        plan = new = None
+        if self._lead:
+            with self._inbox_lock:
+                new, self._inbox = self._inbox, []
+            plan = {"now": now, "stop": bool(stop), "rung": self._degrade_rung,
+                    "new": [(r.id, r.prompt, r.max_new_tokens, r.eos_token_id,
+                             r.timeout_s, r.submit_time) for r in new]}
+        plan = comm.broadcast_object(plan, self._plan_group)
+        if not self._lead:
+            new = [Request(rid, prompt, n_new, eos_token_id=eos, timeout_s=timeout,
+                           submitted_at=t0)
+                   for rid, prompt, n_new, eos, timeout, t0 in plan["new"]]
+            self._degrade_rung = plan["rung"]
+        for req in new:
+            self.scheduler.enqueue(req)
+        self._plan = plan
+        return plan
+
+    def _decision_now(self, now):
+        """The clock a deadline decision reads: the plan's on a mesh, so every
+        rank retires the same requests at the same step."""
+        return self._plan["now"] if self._lockstep else now
+
+    def _rung(self):
+        """The degrade rung this step runs at (the plan's on a mesh)."""
+        return self._plan["rung"] if self._lockstep else self._degrade_rung
+
+    def _from_lead(self, t):
+        """Rank 0's copy of a tensor of chosen tokens (``t`` itself off a
+        mesh): reduction order may not fork the ranks."""
+        if not self._lockstep:
+            return t
+        return comm.broadcast(t, self._plan_group, root=0)
+
+    def follow(self):
+        """A follower rank's serving loop: step on rank 0's plans until rank
+        0 closes its engine. Returns the steps taken."""
+        if not self._lockstep or self._lead:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a serving mesh")
+        steps = 0
+        while self.step() is not None:
+            steps += 1
+        self._stopped = True
+        return steps
 
     def _build_telemetry_server(self, port):
         srv = telemetry.TelemetryServer(registry=telemetry.get_registry(),
@@ -732,12 +852,21 @@ class ServingEngine:
                     device="cuda"):
         """Build from a ds_config (dict or ``DeepSpeedConfig``): its
         validated ``serving`` and ``telemetry`` blocks; an enabled
-        ``fleet.degrade`` sub-block arms the degraded-mode ladder."""
+        ``fleet.degrade`` sub-block arms the degraded-mode ladder, and a
+        ``parallel`` block the tensor-parallel mesh."""
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
         if isinstance(ds_config, dict):
             ds_config = DeepSpeedConfig(ds_config, world_size=1)
-        eng = cls(model, model_config, serving_config=ds_config.serving_config,
+        serving_cfg = ds_config.serving_config
+        parallel = ds_config.parallel_config
+        if parallel.enabled:
+            # the validated `parallel` block arms the mesh, as in the JAX engine
+            serving_cfg = dataclasses.replace(
+                serving_cfg, mesh_shape=parallel.mesh_shape,
+                partition_rules=parallel.partition_rules,
+                replicate_unmatched=parallel.replicate_unmatched)
+        eng = cls(model, model_config, serving_config=serving_cfg,
                   device=device, injector=injector,
                   telemetry_config=ds_config.telemetry_config, rank=rank)
         fleet = ds_config.fleet_config
@@ -774,7 +903,7 @@ class ServingEngine:
 
     def _effective_spec_k(self):
         """Speculation after the ladder: rung >= 1 runs the one-token decode."""
-        return 0 if self._degrade_rung >= 1 else self._spec_k
+        return 0 if self._rung() >= 1 else self._spec_k
 
     def _on_degrade_change(self, old, new, reason):
         self._degrade_rung = new
@@ -848,16 +977,43 @@ class ServingEngine:
         is called for every generated token. ``age_s`` backdates the
         enqueue time: a re-routed request keeps its deadline and TTFT
         clock."""
+        self._check_follower("submit")
         self._check_draining()
         if max_new_tokens is None:
             max_new_tokens = self.config.default_max_new_tokens
         prompt = self._check_request(prompt_ids, max_new_tokens, "max_new_tokens",
                                      eos_token_id)
+        if self._lockstep:
+            # the next plan carries it to every rank
+            req = self.scheduler.adopt(
+                prompt, max_new_tokens=int(max_new_tokens),
+                eos_token_id=None if eos_token_id is None else int(eos_token_id),
+                timeout_s=timeout_s, stream_cb=stream_cb,
+                submitted_at=_submitted_at(age_s))
+            with self._inbox_lock:
+                if self.scheduler.queue_depth() + len(self._inbox) >= self.scheduler.max_queue:
+                    raise QueueFullError(
+                        f"admission queue is full ({self.scheduler.max_queue} waiting); "
+                        f"request rejected — retry with backpressure")
+                self._inbox.append(req)
+            return req.future
         req = self.scheduler.submit(
             prompt, max_new_tokens=int(max_new_tokens),
             eos_token_id=None if eos_token_id is None else int(eos_token_id),
             timeout_s=timeout_s, stream_cb=stream_cb, submitted_at=_submitted_at(age_s))
         return req.future
+
+    def _check_follower(self, what):
+        if self._lockstep and not self._lead:
+            raise RuntimeError(
+                f"{what}() on rank {comm.group_rank(self._plan_group)} of a serving "
+                "mesh: requests are submitted on rank 0, which plans every rank's steps")
+
+    def _check_no_mesh(self, what):
+        if self.local_heads != self.n_heads:
+            raise NotImplementedError(
+                f"{what}: the KV handoff on a serving mesh is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md, queue 1)")
 
     def _check_draining(self):
         if self._draining:
@@ -908,6 +1064,7 @@ class ServingEngine:
         one a mixed admission of the original request lays out, bit for
         bit. Returns the Request (read ``export_payload`` after
         ``future.result()``)."""
+        self._check_no_mesh("submit_handoff")
         self._check_draining()
         reserve = int(reserve_new_tokens)
         prompt = self._check_request(prompt_ids, reserve, "reserve_new_tokens",
@@ -927,6 +1084,7 @@ class ServingEngine:
         span (PoolExhaustedError under pressure). An armed injector claims
         full lanes, as ``_alloc_tokens`` does, so the claim holds at least
         as many pages as the (also full-lane) export ships."""
+        self._check_no_mesh("handoff_claim")
         n = None if self.injector is not None else int(n_tokens)
         return self._run_on_loop(lambda: self.pool.allocate(n))
 
@@ -949,6 +1107,7 @@ class ServingEngine:
         from where prefill stopped. The first token was delivered by the
         prefill replica: it is recorded (``emitted=1``, on the future) but
         not streamed again. Returns the Request."""
+        self._check_no_mesh("resume_handoff")
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = self.scheduler.adopt(
             prompt, max_new_tokens=int(max_new_tokens),
@@ -974,11 +1133,14 @@ class ServingEngine:
         """One scheduler iteration: expire, advance the chunked prefill by
         one chunk, admit (batched per bucket and backend), one batched
         decode step per armed lane class (speculative when armed), retire.
-        Returns an activity dict (all zeros = idle)."""
+        Returns an activity dict (all zeros = idle); on a mesh, None once
+        rank 0 has closed its engine."""
         now = time.monotonic()
+        if self._lockstep and self._exchange_plan(now)["stop"]:
+            return None
         stats = {"admitted": 0, "decoded": 0, "retired": 0, "prefill_chunks": 0}
         self._drain_loop_ops()
-        for req in self.scheduler.pop_expired(now):
+        for req in self.scheduler.pop_expired(self._decision_now(now)):
             self._finish_timeout(req, phase="queued")
             stats["retired"] += 1
         if self._chunking is not None:
@@ -1008,6 +1170,8 @@ class ServingEngine:
                 else:
                     self._decode(stats)
         self._step_count += 1
+        if not self._lead:
+            return stats                 # the ladder and the SLOs are rank 0's
         if self._degrade is not None and self._degrade.config.enabled:
             threshold = max(1, int(self._degrade.config.pressure_queue_frac
                                    * self.config.max_queue))
@@ -1027,7 +1191,8 @@ class ServingEngine:
         for cls, mask in self._dev_active.items():
             tokens, positions = _DECODE_STEPS[cls](
                 self.model, self.pool, self._dev_page_tables, tokens,
-                positions, mask, self.n_heads, self._qmode, self.pool.compute_dtype)
+                positions, mask, self.local_heads, self._qmode, self.pool.compute_dtype)
+        tokens = self._from_lead(tokens)
         self._dev_tokens, self._dev_positions = tokens, positions
         host_tokens = tokens.cpu().numpy()   # the step's one host read
         step_s = time.monotonic() - t0
@@ -1071,10 +1236,18 @@ class ServingEngine:
         for cls, mask in self._dev_active.items():
             tokens, positions, o, a = _spec_step(
                 self.model, self.pool, self._dev_page_tables, self._dev_history,
-                tokens, positions, pos_host, mask, self._dev_noise, k, self.n_heads,
+                tokens, positions, pos_host, mask, self._dev_noise, k, self.local_heads,
                 self._qmode, self.pool.compute_dtype, cls)
             oracle = torch.where(mask[:, None], o, oracle)
             accepted = torch.where(mask, a, accepted)
+        if self._lockstep:
+            # rank 0's verdicts: tokens, positions, oracle, accepted, history
+            packed = self._from_lead(torch.cat(
+                [tokens[:, None], positions[:, None], oracle, accepted[:, None],
+                 self._dev_history], dim=1))
+            tokens, positions = packed[:, 0], packed[:, 1]
+            oracle, accepted = packed[:, 2:k + 3], packed[:, k + 3]
+            self._dev_history = packed[:, k + 4:].contiguous()
         self._dev_tokens, self._dev_positions = tokens, positions
         host = torch.cat([oracle, accepted[:, None]], dim=1).cpu().tolist()   # one read
         step_s = time.monotonic() - t0
@@ -1163,7 +1336,7 @@ class ServingEngine:
     def pending(self):
         """Requests still owed work: queued + chunking + in flight."""
         return (len(self._active) + (1 if self._chunking is not None else 0)
-                + self.scheduler.queue_depth())
+                + self.scheduler.queue_depth() + len(self._inbox))
 
     def start(self, idle_sleep_s=0.001):
         """Run the serving loop on a daemon thread until ``stop()``."""
@@ -1191,6 +1364,10 @@ class ServingEngine:
 
     def close(self):
         self.stop()
+        if self._lockstep and self._lead and not self._stopped:
+            # the followers' loops end on this plan
+            self._exchange_plan(time.monotonic(), stop=True)
+            self._stopped = True
         if self.telemetry_server is not None:
             self.telemetry_server.stop()
             self.telemetry_server = None
@@ -1312,7 +1489,7 @@ class ServingEngine:
 
     def _prefill_buffers(self):
         if self._prefill_kv is None:
-            shape = (self.n_layers, self._prefill_batch, self.n_heads,
+            shape = (self.n_layers, self._prefill_batch, self.local_heads,
                      self.max_seq_len, self.head_dim)
             self._prefill_kv = tuple(
                 torch.zeros(shape, dtype=self.pool.compute_dtype, device=self.device)
@@ -1388,7 +1565,8 @@ class ServingEngine:
         t0 = time.monotonic()
         first = _prefill_batch(
             self.model, init_k, init_v, torch.as_tensor(ids, device=self.device),
-            starts, lens, self.n_heads, impl, pt)
+            starts, lens, self.local_heads, impl, pt)
+        first = self._from_lead(first)
         first_host = first.cpu().tolist()        # sync: the TTFT endpoint
         self.metrics.record_prefill(tokens=sum(len(r.prompt) - re for r, re, _, _ in plan),
                                     reused_tokens=sum(re for _, re, _, _ in plan),
@@ -1427,7 +1605,7 @@ class ServingEngine:
             return False
         self.metrics.record_admission(
             bucket_for(self._suffix_len(req), self.scheduler.buckets), len(req.prompt))
-        shape = (self.n_layers, 1, self.n_heads, self.max_seq_len, self.head_dim)
+        shape = (self.n_layers, 1, self.local_heads, self.max_seq_len, self.head_dim)
         k0 = torch.zeros(shape, dtype=self.pool.compute_dtype, device=self.device)
         v0 = torch.zeros(shape, dtype=self.pool.compute_dtype, device=self.device)
         if reuse > 0:
@@ -1443,8 +1621,7 @@ class ServingEngine:
         chunk. Only the last chunk reads the device, for its first token."""
         st = self._chunking
         req = st.req
-        now = time.monotonic()
-        if req.deadline_exceeded(now):
+        if req.deadline_exceeded(self._decision_now(time.monotonic())):
             req.slot = st.slot             # hand the reserved slot back
             self._finish_timeout(req, phase="prefill")
             self._chunking = None
@@ -1468,8 +1645,9 @@ class ServingEngine:
         with cspan:
             first = _prefill_batch(self.model, st.k, st.v,
                                    torch.as_tensor(ids, device=self.device), [st.pos],
-                                   np.asarray([len(req.prompt)]), self.n_heads, impl,
+                                   np.asarray([len(req.prompt)]), self.local_heads, impl,
                                    self.pool.page_tokens)
+            first = self._from_lead(first)
         st.pos += len(chunk)
         stats["prefill_chunks"] += 1
         self.metrics.record_prefill_chunk()
@@ -1520,7 +1698,7 @@ class ServingEngine:
         bits). Int8 pools store entries quantized per (layer, head).
         Skipped on degrade rung 2, while the memory guard pauses inserts,
         and when an entry already covers the whole prompt."""
-        if self.prefix_cache is None or self._degrade_rung >= 2:
+        if self.prefix_cache is None or self._rung() >= 2:
             return
         if self._mem_guard is not None and self._mem_guard.inserts_paused:
             return
@@ -1579,7 +1757,7 @@ class ServingEngine:
 
     def _maybe_retire(self, req, token, now):
         stuck = self.injector is not None and self.injector.request_is_stuck(req.id)
-        if req.deadline_exceeded(now):
+        if req.deadline_exceeded(self._decision_now(now)):
             self._finish_timeout(req, phase="decoding")
             return 1
         if self.scheduler.should_retire(req, token, stuck=stuck) is not None:

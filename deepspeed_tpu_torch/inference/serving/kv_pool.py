@@ -60,7 +60,7 @@ class KVCachePool:
 
     def __init__(self, n_layers, max_slots, n_heads, max_seq_len, head_dim,
                  dtype=torch.float32, kv_cache_dtype="fp32", page_tokens=None,
-                 pool_tokens=None, device="cuda"):
+                 pool_tokens=None, device="cuda", model_parallel=1):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if max_seq_len < 2:
@@ -70,7 +70,14 @@ class KVCachePool:
                              f"got {kv_cache_dtype!r}")
         self.n_layers = int(n_layers)
         self.max_slots = int(max_slots)
-        self.n_heads = int(n_heads)
+        # a tensor-parallel pool holds this rank's n_heads / model_parallel
+        # heads of every page
+        self.model_parallel = int(model_parallel)
+        if int(n_heads) % self.model_parallel != 0:
+            raise ValueError(
+                f"n_heads={n_heads} not divisible by the mesh's model axis "
+                f"size {self.model_parallel}; the KV pool shards heads")
+        self.n_heads = int(n_heads) // self.model_parallel
         self.max_seq_len = int(max_seq_len)
         self.head_dim = int(head_dim)
         self.device = torch.device(device)
@@ -227,6 +234,13 @@ class KVCachePool:
         self.install_lane(k, v, lane=0, slot=slot, position=position)
 
     # -- raw page export / install (disaggregated handoff) --------------
+    def _check_whole_heads(self, what):
+        if self.model_parallel > 1:
+            raise NotImplementedError(
+                f"{what}: the KV handoff of a heads-sharded lane (model_parallel="
+                f"{self.model_parallel}) is not ported to deepspeed_tpu_torch yet "
+                "(ROADMAP.md, queue 1)")
+
     def export_lane(self, slot):
         """Copy a live lane's pages as stored (storage-dtype bytes, no
         dequantization: the transfer is bitwise) to host memory. Returns
@@ -234,6 +248,7 @@ class KVCachePool:
         then v bytes, fixed length), plus a trailing scales frame in int8
         mode; ``meta`` holds what ``install_raw`` needs to rebuild the lane
         bit for bit in another pool of the same geometry."""
+        self._check_whole_heads("export_lane")
         if slot in self._free:
             raise PageStateError(f"export from slot {slot} which is not allocated")
         pages = self._lane_pages[slot]
@@ -263,6 +278,7 @@ class KVCachePool:
         bit. Idempotent under ``handoff_key``: a re-sent handoff whose key
         is live returns False and touches nothing; installing over a live
         lane held under another key raises PageStateError."""
+        self._check_whole_heads("install_raw")
         if slot in self._free:
             raise PageStateError(f"install_raw into slot {slot} which is not allocated")
         if handoff_key is not None and handoff_key in self._handoff_keys:

@@ -333,7 +333,9 @@ class Router:
                                 + int(doc.get("active_requests", 0)))
                 self._note_probed_role(ep, doc.get("role"))
             ep.failures = 0
-            ep.last_ok = now
+            # stamp the view when the probe finished: a probe slower than
+            # the stale window must not leave a view that is born stale
+            ep.last_ok = time.monotonic()
         except (OSError, ValueError):
             ep.healthy = False
             ep.failures += 1
@@ -359,9 +361,9 @@ class Router:
             raise OSError("health probe: EOF")
         return doc
 
-    def probe_all(self, force=True):
+    def probe_all(self, force=True, now=None):
         """Refresh every endpoint's health view; returns the endpoints."""
-        now = time.monotonic()
+        now = time.monotonic() if now is None else now
         eps = self._endpoints
         for ep in eps:
             self._probe(ep, now=now, force=force)
@@ -609,8 +611,12 @@ class Router:
                 raise FleetOverloadError(
                     "class_budget", self.config.shed_retry_after_s,
                     request_class=rr.request_class)
-        routable = [ep for ep in self.probe_all(force=False)
-                    if self._routable(ep)]
+        # judge saturation on the view this call just took: staleness is
+        # measured from the probe's start, so a slow probe or a thread
+        # descheduled after it cannot turn a shed into an admission
+        now = time.monotonic()
+        routable = [ep for ep in self.probe_all(force=False, now=now)
+                    if self._routable(ep, now)]
         if routable and all(self._saturated(ep) for ep in routable):
             with self._lock:
                 self._counters["shed"] += 1

@@ -8,6 +8,12 @@ final LayerNorm, tied head]. Each block is the port's
 head projects onto the tied token table (``h @ wte.T``); the loss is the
 next-token cross-entropy of ``models/bert.py``.
 
+Under tensor parallelism (``PipelineModule.shard_layers``) a block's qkv
+and ff1 split by columns and attn_out and ff2 by rows, so its flash
+kernels run over the rank's heads at the rank's head offset (dropout
+draws tensor_parallel 1's bits); the token table splits by vocabulary
+and the tied head gathers it.
+
 Every layer draws its initial weights from the generator the module
 hands it (``init_weights``) and converts the JAX layer's flax tree
 (``jax_state_dict``) for ``PipelineModule.load_jax_params``.
@@ -19,6 +25,7 @@ from torch import nn
 
 from deepspeed_tpu_torch.models.bert import cross_entropy
 from deepspeed_tpu_torch.ops.transformer.attention import DEFAULT_BLOCK
+from deepspeed_tpu_torch.parallel.tp import embedding_table
 from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerLayer
 from deepspeed_tpu_torch.runtime.pipe.module import LayerSpec, PipelineModule, TiedLayerSpec
 
@@ -136,8 +143,9 @@ class GPT2FinalNormPipe(nn.Module):
 
 
 def _lm_head_forward(layer, h):
-    """Tied head: logits through the token table's transpose."""
-    return h @ layer.wte.weight.T.to(h.dtype)
+    """Tied head: logits through the token table's transpose (gathered
+    over the model group when the table is vocab-parallel)."""
+    return h @ embedding_table(layer.wte).T.to(h.dtype)
 
 
 def gpt2_loss_fn(logits, labels):

@@ -272,6 +272,69 @@ def serving_registry(extra_rules=None, replicate_unmatched=True):
                             name="serving_registry")
 
 
+# The placements a port serving mesh runs, in ``parallel/tp.py``'s form
+# (path regex over a layer's flax view, the dim from the end that carries
+# the model axis): the built-in SERVING_PARTITION_RULES as explicit
+# Megatron layers. Embeddings, norms and row-parallel biases replicate.
+SERVING_TP_RULES = [
+    (r"(qkv|ff1)/(kernel|bias)$", 1),
+    (r"(attn_out|ff2)/kernel$", 2),
+]
+
+# the engine buffers the serving registry places, with their ranks
+SERVING_BUFFERS = {"serving/kv_pool": 5, "serving/kv_scale": 5,
+                   "serving/prefill_kv": 5, "serving/lane_state": 0}
+
+
+def _canonical(spec):
+    """A spec without trailing Nones (``(None, None)`` is ``()``)."""
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    return spec
+
+
+def gpt2_serving_paths(model):
+    """{JAX parameter-tree path: stacked rank} of a port
+    ``GPT2LMHeadModel``'s leaves, as the JAX serving engine names them
+    (the scanned layer stack under ``layers/DeepSpeedTransformerLayer_0``,
+    every layer leaf with a leading [L] axis)."""
+    from deepspeed_tpu_torch.parallel.tp import flax_view
+
+    out = {}
+    for name, (path, shape, _) in flax_view(model).items():
+        parts = path.split("/")
+        if parts[0] == "layers":
+            path = "/".join(["layers", "DeepSpeedTransformerLayer_0"] + parts[2:])
+            ndim = len(shape) + 1
+        else:
+            ndim = len(shape)
+        out[f"params/transformer/{path}"] = ndim
+    return out
+
+
+def check_serving_placement(registry, model):
+    """Hold ``registry`` (the built-ins under the user's ``partition_rules``)
+    to the placements a port serving mesh runs: every GPT-2 leaf and engine
+    buffer must resolve to the spec the built-in table gives it (qkv and
+    ff1 by column, attn_out and ff2 by row, the KV pool over its heads,
+    everything else replicated). The port's layers are explicit Megatron
+    layers, so any other placement is refused, naming the leaf."""
+    builtin = serving_registry()
+    leaves = dict(gpt2_serving_paths(model))
+    leaves.update(SERVING_BUFFERS)
+    for path, ndim in leaves.items():
+        want = _canonical(builtin.spec_for(path, ndim=ndim))
+        got = _canonical(registry.spec_for(path, ndim=ndim))
+        if got != want:
+            raise NotImplementedError(
+                f"serving partition_rules place '{path}' as {got}; a serving mesh of "
+                f"deepspeed_tpu_torch places it as {want} (qkv/ff1 by column, "
+                "attn_out/ff2 by row, the KV pool over its heads, the rest "
+                "replicated) and has no other placement yet (ROADMAP.md)")
+    return registry
+
+
 def train_registry():
     """The train/ZeRO-side registry."""
     return ShardingRegistry(TRAIN_PARTITION_RULES, name="train_registry")

@@ -232,11 +232,19 @@ def shard_params(module, mesh, rules=MEGATRON_RULES, log=False):
     model size, in place; returns the module. A transformer layer's qkv ->
     attn_out and ff1 -> ff2 pairs skip the gather between them; any other
     matched linear gathers its output (column) or slices its input
-    (row)."""
+    (row). A module already placed over the same model size is returned
+    as it is."""
     from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerLayer
 
     W = mesh.shape[MODEL_AXIS]
     if W == 1:
+        return module
+    held = {m.world for m in module.modules() if hasattr(m, "tp_dims")}
+    if held:
+        # placed already (a model handed to a second engine): in place once
+        if held != {W}:
+            raise ValueError(f"the module is sharded over model sizes {sorted(held)}, "
+                             f"not {W}")
         return module
     group, rank = mesh.group(MODEL_AXIS), mesh.rank(MODEL_AXIS)
     dims = placement(module, W, rules)

@@ -25,6 +25,8 @@ raises ``NotImplementedError`` naming it; nothing is silently ignored.
 
 import json
 import os
+import re
+from dataclasses import dataclass
 
 import torch
 
@@ -331,6 +333,15 @@ from deepspeed_tpu_torch.runtime.constants import (
     SERVING_SPECULATIVE_K_DEFAULT,
     ZERO_ALLOW_UNTESTED_OPTIMIZER,
     ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT,
+    PARALLEL,
+    PARALLEL_ENABLED,
+    PARALLEL_MESH_AXES,
+    PARALLEL_MESH_SHAPE,
+    PARALLEL_MESH_SHAPE_DEFAULT,
+    PARALLEL_PARTITION_RULES,
+    PARALLEL_PARTITION_RULES_DEFAULT,
+    PARALLEL_REPLICATE_UNMATCHED,
+    PARALLEL_REPLICATE_UNMATCHED_DEFAULT,
 )
 from deepspeed_tpu_torch.runtime.resilience.config import ResilienceConfig
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
@@ -615,6 +626,96 @@ def get_sparse_bslongformer_config(sparsity):
             sparsity, SPARSE_GLOBAL_BLOCK_END_INDICES, SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT
         ),
     }
+
+
+@dataclass
+class ParallelConfig:
+    """Typed view of the ``parallel`` block: the serving engine's
+    tensor-parallel mesh shape plus optional sharding-registry rule
+    overrides. The mesh itself is built by the engine
+    (parallel/sharding_registry.py), never here."""
+
+    enabled: bool = False
+    mesh_shape: tuple = PARALLEL_MESH_SHAPE_DEFAULT   # (data, model)
+    partition_rules: tuple = None   # ((pattern, spec-elements), ...)
+    replicate_unmatched: bool = True
+
+
+def get_parallel_config(param_dict):
+    """parallel: mesh shape + sharding-registry rule overrides, with the JAX
+    package's keys, defaults and messages. The block being present enables
+    it. Validation is of shapes only: the heads' divisibility and the rank
+    count are checked by the engine, which knows the model and the world."""
+    section = param_dict.get(PARALLEL, None)
+    params = section or {}
+    enabled = bool(get_scalar_param(params, PARALLEL_ENABLED, section is not None))
+
+    mesh_shape = get_scalar_param(params, PARALLEL_MESH_SHAPE, PARALLEL_MESH_SHAPE_DEFAULT)
+    if isinstance(mesh_shape, dict):
+        unknown = [k for k in mesh_shape if k not in PARALLEL_MESH_AXES]
+        if unknown:
+            raise ValueError(
+                f"parallel.{PARALLEL_MESH_SHAPE} names unknown axes "
+                f"{unknown!r}; the serving mesh defines {PARALLEL_MESH_AXES}")
+        sizes = [mesh_shape.get(ax, 1) for ax in PARALLEL_MESH_AXES]
+    elif isinstance(mesh_shape, (list, tuple)) and len(mesh_shape) == 2:
+        sizes = list(mesh_shape)
+    else:
+        raise ValueError(
+            f"parallel.{PARALLEL_MESH_SHAPE} must be a (data, model) pair "
+            f"or a {{axis: size}} dict over {PARALLEL_MESH_AXES}, "
+            f"got {mesh_shape!r}")
+    for ax, size in zip(PARALLEL_MESH_AXES, sizes):
+        if isinstance(size, bool) or not isinstance(size, int) or size < 1:
+            raise ValueError(
+                f"parallel.{PARALLEL_MESH_SHAPE} {ax!r} size must be an "
+                f"int >= 1, got {size!r}")
+    mesh_shape = tuple(sizes)
+    # a dict that omits an axis leaves it size 1 but defined, so a rule
+    # may name any axis of PARALLEL_MESH_AXES
+    allowed_axes = PARALLEL_MESH_AXES
+
+    rules = get_scalar_param(params, PARALLEL_PARTITION_RULES, PARALLEL_PARTITION_RULES_DEFAULT)
+    if rules is not None:
+        if not isinstance(rules, (list, tuple)):
+            raise ValueError(
+                f"parallel.{PARALLEL_PARTITION_RULES} must be a list of "
+                f"[pattern, spec] pairs, got {rules!r}")
+        norm = []
+        for i, rule in enumerate(rules):
+            if (not isinstance(rule, (list, tuple)) or len(rule) != 2
+                    or not isinstance(rule[0], str)
+                    or not isinstance(rule[1], (list, tuple))):
+                raise ValueError(
+                    f"parallel.{PARALLEL_PARTITION_RULES}[{i}] must be a "
+                    f"[pattern, [axis-or-null, ...]] pair, got {rule!r}")
+            pattern, spec = rule
+            try:
+                re.compile(pattern)
+            except re.error as exc:
+                raise ValueError(
+                    f"parallel.{PARALLEL_PARTITION_RULES}[{i}] pattern "
+                    f"{pattern!r} is not a valid regex: {exc}")
+            elems = []
+            for elem in spec:
+                if elem is not None and elem not in allowed_axes:
+                    raise ValueError(
+                        f"parallel.{PARALLEL_PARTITION_RULES}[{i}] names "
+                        f"axis {elem!r} absent from "
+                        f"{PARALLEL_MESH_SHAPE}={mesh_shape} "
+                        f"(axes: {allowed_axes})")
+                elems.append(elem)
+            norm.append((pattern, tuple(elems)))
+        rules = tuple(norm)
+
+    replicate_unmatched = get_scalar_param(params, PARALLEL_REPLICATE_UNMATCHED,
+                                           PARALLEL_REPLICATE_UNMATCHED_DEFAULT)
+    if not isinstance(replicate_unmatched, bool):
+        raise ValueError(
+            f"parallel.{PARALLEL_REPLICATE_UNMATCHED} must be a bool, "
+            f"got {replicate_unmatched!r}")
+    return ParallelConfig(enabled=enabled, mesh_shape=mesh_shape,
+                          partition_rules=rules, replicate_unmatched=replicate_unmatched)
 
 
 def get_serving_config(param_dict):
@@ -1443,6 +1544,7 @@ class DeepSpeedConfig:
         (self.pld_enabled, self.pld_theta,
          self.pld_gamma) = get_progressive_layer_drop(param_dict)
         self.serving_config = get_serving_config(param_dict)
+        self.parallel_config = get_parallel_config(param_dict)
         self.fleet_config = get_fleet_config(param_dict)
         self.sparse_attention = get_sparse_attention(param_dict)
         self.pipeline = get_pipeline_config(param_dict)

@@ -355,9 +355,20 @@ PIPELINE_NUM_MODEL_CHUNKS_DEFAULT = 1
 PIPELINE_EXECUTOR = "executor"
 PIPELINE_EXECUTOR_DEFAULT = "auto"
 
+# the parallel section: the serving engine's tensor-parallel mesh and its
+# sharding-registry overrides (the JAX package's keys and defaults)
+PARALLEL = "parallel"
+PARALLEL_ENABLED = "enabled"
+PARALLEL_MESH_SHAPE = "mesh_shape"
+PARALLEL_MESH_SHAPE_DEFAULT = (1, 1)  # (data, model); dict form allowed
+PARALLEL_MESH_AXES = ("data", "model")  # axes mesh_shape may name
+PARALLEL_PARTITION_RULES = "partition_rules"
+PARALLEL_PARTITION_RULES_DEFAULT = None  # None = built-in registry rules
+PARALLEL_REPLICATE_UNMATCHED = "replicate_unmatched"
+PARALLEL_REPLICATE_UNMATCHED_DEFAULT = True
+
 # sections and switches of the JAX config the port does not run yet: a
 # config that enables one is refused by name
 UNPORTED_SECTIONS = ("flops_profiler", "amp",
                      "curriculum_learning", "tensorboard", "csv_monitor", "sentinel",
-                     "parallel",
                      "sparse_gradients", "wall_clock_breakdown", "memory_breakdown")

@@ -196,9 +196,19 @@ class ReplicatedOptimizer:
     cast into the module's compute-dtype parameters. Under tensor
     parallelism the norm sums the model-axis shards over the model group
     and counts the replicated tensors once, and the overflow flag is a MAX
-    over the model group."""
+    over the model group.
 
-    def __init__(self, inner, master, params, names, compute_dtype, mesh=None, tp_place=None):
+    Expert parallelism (``experts``: {parameter index: the group its
+    ``MoELayer`` splits the experts over}): an expert's gradient is summed
+    over the ranks that hold the same experts (``expert_data_group``, None
+    when the experts split over the whole data group) and scaled by 1 /
+    the data size, since each rank's expert already took every rank's
+    tokens through the all-to-all; the norm counts each expert once (its
+    squares summed over the expert group), and whole tensors gather the
+    experts over it."""
+
+    def __init__(self, inner, master, params, names, compute_dtype, mesh=None, tp_place=None,
+                 experts=None, expert_data_group=None):
         self.inner = inner
         self.master = master
         self.params = params
@@ -214,24 +224,47 @@ class ReplicatedOptimizer:
         self.mp_rank = 0 if mesh is None else mesh.rank(MODEL_AXIS)
         self.world = comm.group_size(self.data_group)
         self.tp = [(tp_place or {}).get(n) for n in names]
+        self.experts = dict(experts or {})
+        self.expert_data_group = expert_data_group
         self.acc_grads = [torch.zeros_like(m) for m in master]
+
+    @staticmethod
+    def _mean_over(tensors, group, n):
+        """``tensors`` (in place) summed over ``group`` and divided by ``n``:
+        one all-reduce of their flat concatenation."""
+        if not tensors or (comm.group_size(group) == 1 and n == 1):
+            return
+        flat = comm.all_reduce(flatten_dense_tensors(tensors), group)
+        flat.div_(n)
+        torch._foreach_copy_(tensors, unflatten_dense_tensors(
+            flat, [tuple(g.shape) for g in tensors]))
 
     def reduce_gradients(self):
         if self.world > 1:
-            flat = comm.all_reduce(flatten_dense_tensors(self.acc_grads), self.data_group)
-            flat.div_(self.world)
-            torch._foreach_copy_(self.acc_grads, unflatten_dense_tensors(
-                flat, [tuple(g.shape) for g in self.acc_grads]))
+            acc = self.acc_grads
+            self._mean_over([g for i, g in enumerate(acc) if i not in self.experts],
+                            self.data_group, self.world)
+            self._mean_over([g for i, g in enumerate(acc) if i in self.experts],
+                            self.expert_data_group, self.world)
         return self.acc_grads
 
     def has_overflow(self, grads):
-        # the reduced gradients are alike on every data rank
+        # the reduced gradients are alike on every data rank, but experts
         flag = has_overflow(grads)
+        if self.experts:
+            flag = comm.all_reduce(flag.float(), self.data_group, comm.ReduceOp.MAX) > 0
         if self.model_group is None:
             return flag
         return comm.all_reduce(flag.float(), self.model_group, comm.ReduceOp.MAX) > 0
 
     def global_norm(self, grads):
+        if self.experts:
+            dense = [g for i, g in enumerate(grads) if i not in self.experts]
+            sq = global_norm(dense) ** 2 if dense else torch.zeros((), device=grads[0].device)
+            for group in {id(g): g for g in self.experts.values()}.values():
+                mine = [grads[i] for i, eg in self.experts.items() if eg is group]
+                sq = sq + comm.all_reduce(global_norm(mine) ** 2, group)
+            return torch.sqrt(sq)
         if self.model_group is None:
             return global_norm(grads)
         split = [g for g, t in zip(grads, self.tp) if t is not None]
@@ -257,11 +290,16 @@ class ReplicatedOptimizer:
         return self.state
 
     def _whole(self, t, i):
+        if i in self.experts:
+            return comm.all_gather(t, self.experts[i], axis=0)
         if self.tp[i] is None:
             return t
         return whole_of(t, self.tp[i][0], self.model_group, self.tp[i][1])
 
     def _part(self, t, i):
+        if i in self.experts:
+            g = self.experts[i]
+            return local_part(t, 0, comm.group_rank(g), comm.group_size(g))
         if self.tp[i] is None:
             return t
         return local_part(t, self.tp[i][0], self.mp_rank, comm.group_size(self.model_group),
@@ -368,6 +406,46 @@ class OnebitStep:
             setattr(state, k, v.to(self.flat.device) if torch.is_tensor(v) else v)
 
 
+def _expert_data_group(ep_group, data_group):
+    """The group of the data ranks holding this rank's experts: those at
+    this rank's position in their own expert group (a collective of the
+    data group; None when the expert group spans the data group)."""
+    dp, W = comm.group_size(data_group), comm.group_size(ep_group)
+    assert dp % W == 0, f"the expert group ({W} ranks) does not split the data group ({dp})"
+    if W == dp:
+        return None
+    mine = (comm.group_rank(ep_group), torch.distributed.get_rank())
+    every = [None] * dp
+    torch.distributed.all_gather_object(every, mine, group=data_group)
+    out = None
+    for pos in range(W):   # every rank makes every group, in one order
+        ranks = sorted(r for p, r in every if p == pos)
+        g = torch.distributed.new_group(ranks)
+        if pos == mine[0]:
+            out = g
+    return out
+
+
+def configure_mesh(config, mpu):
+    """The (pipe, data, model) mesh: an external ``mpu``'s groups, or the
+    world split by ``tensor_parallel.size`` (and an explicit
+    ``mesh.data_parallel_size``, which must cover the world with it: one
+    process a rank, so the launcher sizes the world)."""
+    mp_size = resolve_tp_size(config, mpu)
+    if mpu is not None:
+        mesh = Mesh.from_mpu(mpu)
+        assert mesh.shape[MODEL_AXIS] == mp_size, (
+            f"mpu reports model parallel {mesh.shape[MODEL_AXIS]}, config {mp_size}")
+        return mesh
+    dp_size = resolve_dp_size(config)
+    world = dist.get_world_size()
+    if dp_size is not None and dp_size * mp_size != world:
+        raise ValueError(
+            f"mesh.data_parallel_size={dp_size} x tensor_parallel={mp_size} must equal "
+            f"the world size {world}: one process a rank, the launcher sizes the world")
+    return create_mesh(data_parallel_size=dp_size, model_parallel_size=mp_size)
+
+
 class DeepSpeedEngine:
     """Wraps a module for mixed-precision, data-parallel training."""
 
@@ -388,7 +466,7 @@ class DeepSpeedEngine:
         if dist_init_required is None or dist_init_required:
             dist.init_distributed(verbose=False, device_type=torch.device(device).type)
         self.device = resolve_device(device)
-        self.mesh = self._configure_mesh(config, mpu)
+        self.mesh = configure_mesh(config, mpu)
         self.mpu = mpu
         self.dp_world_size = self.mesh.shape[DATA_AXIS]
         self.mp_world_size = self.mesh.shape[MODEL_AXIS]
@@ -425,13 +503,8 @@ class DeepSpeedEngine:
             # its model-axis shard
             tp.shard_params(self.module, self.mesh)
         self._tp_place = tp.sharded_params(self.module)
-        if any(isinstance(m, MoELayer) and comm.group_size(m.group) > 1
-               for m in self.module.modules()):
-            raise NotImplementedError(
-                "an expert-parallel MoELayer (shard_experts) under initialize() is not "
-                "ported yet: the engine averages every gradient over the data group "
-                "(slice 8c, ROADMAP.md queue 1)")
         named = [(n, p) for n, p in self.module.named_parameters() if p.requires_grad]
+        self._expert_groups = self._configure_experts(optimizer)
         if model_parameters is not None:
             chosen = {id(p) for p in model_parameters}
             named = [(n, p) for n, p in named if id(p) in chosen]
@@ -496,24 +569,33 @@ class DeepSpeedEngine:
         self._cluster = ClusterHooks(me)
         self._config.print("DeepSpeedEngine configuration")
 
-    def _configure_mesh(self, config, mpu):
-        """The (pipe, data, model) mesh: an external ``mpu``'s groups, or the
-        world split by ``tensor_parallel.size`` (and an explicit
-        ``mesh.data_parallel_size``, which must cover the world with it:
-        one process a rank, so the launcher sizes the world)."""
-        mp_size = resolve_tp_size(config, mpu)
-        if mpu is not None:
-            mesh = Mesh.from_mpu(mpu)
-            assert mesh.shape[MODEL_AXIS] == mp_size, (
-                f"mpu reports model parallel {mesh.shape[MODEL_AXIS]}, config {mp_size}")
-            return mesh
-        dp_size = resolve_dp_size(config)
-        world = dist.get_world_size()
-        if dp_size is not None and dp_size * mp_size != world:
-            raise ValueError(
-                f"mesh.data_parallel_size={dp_size} x tensor_parallel={mp_size} must equal "
-                f"the world size {world}: one process a rank, the launcher sizes the world")
-        return create_mesh(data_parallel_size=dp_size, model_parallel_size=mp_size)
+    def _configure_experts(self, client_optimizer):
+        """{parameter name: its expert group} of the expert-parallel
+        ``MoELayer``s' stacked experts, and ``self._expert_data_group``: the
+        ranks of the data group holding the same experts (None when the
+        experts split over the whole data group). ZeRO, 1-bit Adam and
+        tensor parallelism with split experts are refused by name."""
+        layers = [(n, m) for n, m in self.module.named_modules()
+                  if isinstance(m, MoELayer) and comm.group_size(m.group) > 1]
+        self._expert_data_group = None
+        if not layers:
+            return {}
+        refused = [what for what, on in (
+            ("ZeRO (zero_optimization.stage > 0)", self.zero_optimization()),
+            ("tensor parallelism", self.mp_world_size > 1),
+            ("OnebitAdam", (self.optimizer_name() or "").lower() == ONEBIT_ADAM_OPTIMIZER),
+        ) if on]
+        if refused:
+            raise NotImplementedError(
+                f"{', '.join(refused)} with an expert-parallel MoELayer under initialize() "
+                "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue 1)")
+        groups = {id(m.group): m.group for _, m in layers}
+        if len(groups) > 1:
+            raise NotImplementedError("expert-parallel MoELayers over different groups under "
+                                      "one engine are not ported (ROADMAP.md queue 1)")
+        ep = next(iter(groups.values()))
+        self._expert_data_group = _expert_data_group(ep, self.mesh.group(DATA_AXIS))
+        return {f"{n}.{k}" if n else k: ep for n, _ in layers for k in ("w1", "b1", "w2", "b2")}
 
     def _onebit_path(self, client_optimizer):
         """True when the step runs the 1-bit compressed collective (JAX's
@@ -700,9 +782,13 @@ class DeepSpeedEngine:
             return
         if not self.zero_optimization():
             self.optimizer = basic_optimizer
+            experts = {i: self._expert_groups[n] for i, n in enumerate(self._param_names)
+                       if n in self._expert_groups}
             self._step_optimizer = ReplicatedOptimizer(
                 basic_optimizer, self._master, self._params, self._param_names,
-                self.compute_dtype, mesh=self.mesh, tp_place=self._tp_place)
+                self.compute_dtype, mesh=self.mesh, tp_place=self._tp_place,
+                experts=experts,
+                expert_data_group=self._expert_data_group if experts else None)
             self._acc_grads = self._step_optimizer.acc_grads
             return
         if self.optimizer_name() is not None and \

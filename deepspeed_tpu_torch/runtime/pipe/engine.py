@@ -46,9 +46,20 @@ p % S). ``train_batch`` and ``eval_batch`` are the only entry points.
   the step boundary runs the job-level hooks; the ``telemetry`` block
   arms the JAX engine's spans and the per-stage gauges.
 
-Not ported here (refused by name): ZeRO and tensor parallelism under a
-pipeline, ``initialize(mpu=...)``, and the JAX ``"compiled"`` executor
-(one XLA program a step).
+- Tensor parallelism and ZeRO inside the stages (``tensor_parallel``,
+  ``mesh``, ``initialize(mpu=...)``, ``zero_optimization.stage`` 1-3):
+  one process a (data, model) rank, each driving every stage. Every
+  layer is sharded after its weights are drawn (``shard_layers``); the
+  accumulators are averaged over the data group only; with ZeRO each
+  stage has a ``ZeroPytreeOptimizer`` over the data group (stage 3 runs
+  as stage 2, as the JAX pipe's pytree optimizer does); the global norm
+  and the fp16 overflow flag reduce over the model group as well; a tied
+  layer's reduce carries the rank's shard. A tag holds whole tensors
+  (gathered over both groups), so it loads at any data or model size
+  and ``zero_to_fp32`` reads it.
+
+Not ported here (refused by name): ``cpu_offload`` under a pipeline,
+and the JAX ``"compiled"`` executor (one XLA program a step).
 """
 
 import dataclasses
@@ -66,8 +77,8 @@ from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.ops.sgd import SGD
 from deepspeed_tpu_torch.ops.utils_op import flatten_dense_tensors, unflatten_dense_tensors
 from deepspeed_tpu_torch.runtime.checkpoint import CheckpointCorruptionError, CheckpointStorage
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, _section_enabled
-from deepspeed_tpu_torch.runtime.config_utils import as_config_dict, resolve_num_model_chunks
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config_utils import resolve_num_model_chunks, resolve_tp_size
 from deepspeed_tpu_torch.runtime.constants import (
     ADAM_OPTIMIZER,
     ADAMW_OPTIMIZER,
@@ -78,7 +89,15 @@ from deepspeed_tpu_torch.runtime.constants import (
     SGD_OPTIMIZER,
 )
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
-from deepspeed_tpu_torch.runtime.engine import _deserialize, _host_tree, _serialize
+from deepspeed_tpu_torch.parallel import tp
+from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from deepspeed_tpu_torch.runtime.engine import (
+    _deserialize,
+    _host_tree,
+    _serialize,
+    configure_mesh,
+)
+from deepspeed_tpu_torch.runtime.zero.pytree_optimizer import ZeroPytreeOptimizer
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     DynamicScalerState,
     init_dynamic_scaler_state,
@@ -106,9 +125,6 @@ class PipelineEngine:
     def __init__(self, args=None, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
                  collate_fn=None, config=None, config_params=None, device="cuda"):
-        if mpu is not None:
-            raise NotImplementedError("initialize(mpu=...) under a pipeline is not ported "
-                                      "yet (slice 8c, ROADMAP.md queue 1)")
         if not isinstance(model, PipelineModule):
             raise TypeError("model must be a PipelineModule")
         if config is None and args is not None:
@@ -138,19 +154,25 @@ class PipelineEngine:
             f"num_model_chunks {self.num_model_chunks}")
         self.num_phys_stages = self.num_stages // self.num_model_chunks
 
-        self._config = DeepSpeedConfig(config)
+        # one process a (data, model) rank, each driving every stage: the
+        # devices of a stage are the world's
+        mp = resolve_tp_size(config, mpu)
+        world = dist.get_world_size()
+        assert world % mp == 0, (
+            f"devices per stage {world} not divisible by tensor_parallel size {mp}")
+        self.mesh = configure_mesh(config, mpu)
+        self.mpu = mpu
+        self.mp_world_size = self.mesh.shape[MODEL_AXIS]
+        self.dp_world_size = self.mesh.shape[DATA_AXIS]
+        self._dp_group = self.mesh.group(DATA_AXIS)
+        self._mp_group = self.mesh.group(MODEL_AXIS)
+        self._config = DeepSpeedConfig(config, world_size=self.dp_world_size)
         assert not self._config.elasticity_enabled, (
             "Elasticity is not currently supported with pipeline parallelism.")
-        if self._config.zero_enabled:
+        if self._config.zero_enabled and self._config.zero_config.cpu_offload:
             raise NotImplementedError(
-                "zero_optimization.stage > 0 under a pipeline is not ported yet "
-                "(pytree ZeRO under the pipeline, slice 8c, ROADMAP.md queue 1)")
-        raw = as_config_dict(config)
-        for key in ("tensor_parallel", "mesh"):
-            if _section_enabled(raw, key):
-                raise NotImplementedError(
-                    f"{key} under a pipeline is not ported yet (tensor parallelism under "
-                    "the pipeline, slice 8c, ROADMAP.md queue 1)")
+                "zero_optimization.cpu_offload under a pipeline is not ported to "
+                "deepspeed_tpu_torch (ROADMAP.md queue 1)")
         executor = str(self._config.pipeline.get(PIPELINE_EXECUTOR,
                                                   PIPELINE_EXECUTOR_DEFAULT)).lower()
         if executor == "compiled":
@@ -163,7 +185,6 @@ class PipelineEngine:
             logger.warning(f"unknown pipeline.executor {executor!r} (valid: auto|compiled|"
                            "interpreted); using the interpreter")
         self.executor = "interpreted"
-        self.dp_world_size = dist.get_world_size()
         self.global_rank = dist.get_rank()
 
         self.micro_batches = self._config.gradient_accumulation_steps
@@ -272,7 +293,7 @@ class PipelineEngine:
         return RepeatingLoader(DeepSpeedDataLoader(
             dataset=training_data, batch_size=self.micro_batch_size,
             collate_fn=self.collate_fn, num_replicas=self.dp_world_size,
-            rank=self.global_rank, tput_timer=self.tput_timer))
+            rank=self.mesh.rank(DATA_AXIS), tput_timer=self.tput_timer))
 
     def _stage_of_layer(self, idx):
         for s in range(self.num_stages):
@@ -292,12 +313,17 @@ class PipelineEngine:
     def _place_params(self):
         m = self.module
         m.init_params(lambda i: self.device)   # one device a process: every stage
+        if self.mp_world_size > 1:
+            m.shard_layers(self.mesh)
         cast = self.compute_dtype != torch.float32
         self._params, self._names, self._masters, self._acc = [], [], [], []
+        # per stage, each parameter's model-axis placement (dim, sections) or
+        # None, and whether it is an nn.Linear weight (the flax layout flips)
+        self._tp, self._flips = [], []
         self._layer_slot = {}       # layer index -> (stage, start, end) in its stage's lists
         for s in range(self.num_stages):
             lo, hi = m.stage_layer_range(s)
-            params, names = [], []
+            params, names, places, flips = [], [], [], []
             for idx in range(lo, hi):
                 layer = m.get_layers()[idx]
                 if not isinstance(layer, torch.nn.Module):
@@ -307,6 +333,10 @@ class PipelineEngine:
                     self._layer_slot[idx] = (s, len(params), len(params) + len(named))
                 params += [p for _, p in named]
                 names += [f"layer_{idx:02d}.{n}" for n, _ in named]
+                place = tp.sharded_params(layer)
+                view = tp.flax_view(layer)
+                places += [place.get(n) for n, _ in named]
+                flips += [view[n][2] for n, _ in named]
             for p in params:
                 p.data = p.data.float()
             masters = [p.detach().clone() for p in params] if cast else [p.data for p in params]
@@ -319,7 +349,28 @@ class PipelineEngine:
             self._names.append(names)
             self._masters.append(masters)
             self._acc.append([torch.zeros_like(t) for t in masters])
+            self._tp.append(places)
+            self._flips.append(flips)
         self._opt_state = [None] * self.num_stages
+        self._zero = None
+        if self._config.zero_enabled:
+            # one ZeRO-1/2 optimizer a stage over the data group; it holds
+            # the stage's master parts and gradient accumulators
+            self._zero = []
+            for s in range(self.num_stages):
+                if not self._params[s]:
+                    self._zero.append(None)
+                    continue
+                z = ZeroPytreeOptimizer(self.basic_optimizer,
+                                        stage=self._config.zero_optimization_stage,
+                                        mesh=self.mesh)
+                names = self._names[s]
+                z.init(self._params[s], names, self._masters[s],
+                       {n: t for n, t in zip(names, self._tp[s]) if t is not None},
+                       dict(zip(names, self._flips[s])))
+                self._masters[s] = z.master
+                self._acc[s] = z.acc_grads
+                self._zero.append(z)
 
     def _slot(self, lists, idx):
         s, a, b = self._layer_slot[idx]
@@ -590,12 +641,12 @@ class PipelineEngine:
 
     def _reduce_dp_grads(self):
         """Average every stage's accumulators over the data-parallel group
-        (one all-reduce of their flat concatenation; a no-op at world 1)."""
-        if self.dp_world_size <= 1:
+        (one all-reduce of their flat concatenation; a no-op at data size
+        1). With ZeRO each stage's optimizer reduces its own parts."""
+        if self.dp_world_size <= 1 or self._zero is not None:
             return
         acc = [t for stage in self._acc for t in stage]
-        flat = flatten_dense_tensors(acc)
-        torch.distributed.all_reduce(flat)
+        flat = comm.all_reduce(flatten_dense_tensors(acc), self._dp_group)
         flat.div_(self.dp_world_size)
         torch._foreach_copy_(acc, unflatten_dense_tensors(flat, [tuple(t.shape) for t in acc]))
 
@@ -615,7 +666,7 @@ class PipelineEngine:
             for _, idx in entries[1:]:
                 torch._foreach_copy_(self._slot(self._masters, idx),
                                      self._slot(self._masters, owner_idx))
-                if self.compute_dtype != torch.float32:
+                if self.compute_dtype != torch.float32 or self._zero is not None:
                     torch._foreach_copy_([p.data for p in self._slot(self._params, idx)],
                                          [p.data for p in self._slot(self._params, owner_idx)])
 
@@ -631,11 +682,38 @@ class PipelineEngine:
             self._reduce_tied_grads()
             self._update()
 
+    def _grads_overflow(self, grads):
+        """The fp16 overflow verdict over every stage and rank (one host read)."""
+        if self._zero is not None:
+            flags = [z.has_overflow(g) for z, g in zip(self._zero, grads) if z is not None]
+            return bool(torch.stack(flags).any()) if flags else False
+        flag = has_overflow([t for stage in grads for t in stage])
+        if self.mp_world_size > 1:
+            flag = comm.all_reduce(flag.float(), self._mp_group, comm.ReduceOp.MAX) > 0
+        return bool(flag)
+
+    def _grads_norm(self, grads):
+        """The global L2 norm of the stages' reduced gradients, each element
+        counted once: model-axis shards summed over the model group, ZeRO
+        parts over the data group."""
+        if self._zero is not None:
+            sq = [z.global_norm(g) ** 2 for z, g in zip(self._zero, grads) if z is not None]
+            return torch.sqrt(torch.stack(sq).sum())
+        if self.mp_world_size == 1:
+            return global_norm([t for stage in grads for t in stage])
+        parts = torch.zeros(2, device=self.device)
+        for s, stage in enumerate(grads):
+            for i, g in enumerate(stage):
+                parts[int(self._tp[s][i] is not None)] += g.float().pow(2).sum()
+        return torch.sqrt(parts[0] + comm.all_reduce(parts[1:], self._mp_group)[0])
+
     def _update(self):
-        acc_all = [t for stage in self._acc for t in stage]
+        # under ZeRO each stage reduces its parts here, after the tied sums
+        grads = self._acc if self._zero is None else \
+            [[] if z is None else z.reduce_gradients() for z in self._zero]
         scale = self.scaler_state.cur_scale
         mb = float(self.micro_batches)
-        overflow = self._fp16 and bool(has_overflow(acc_all))
+        overflow = self._fp16 and self._grads_overflow(grads)
         if overflow:
             self.skipped_steps += 1
             for acc in self._acc:
@@ -647,7 +725,7 @@ class PipelineEngine:
             # the global norm over every stage (per-stage clipping would
             # change the update's direction against one stage); one factor
             # folds the averaging, the unscaling and the clip
-            gnorm = global_norm(acc_all) / (mb * scale)
+            gnorm = self._grads_norm(grads) / (mb * scale)
             clip = self._config.gradient_clipping
             coeff = torch.ones_like(gnorm)
             if clip > 0:
@@ -658,11 +736,17 @@ class PipelineEngine:
             for st in range(self.num_stages):
                 if not self._masters[st]:
                     continue
-                grads = torch._foreach_mul(self._acc[st], factor)
-                self.basic_optimizer.update(grads, self._ensure_opt_state(st),
-                                            self._masters[st], lr=lr, names=self._names[st])
-                if self.compute_dtype != torch.float32:
-                    torch._foreach_copy_([p.data for p in self._params[st]], self._masters[st])
+                step_grads = torch._foreach_mul(grads[st], factor)
+                if self._zero is not None:
+                    # steps the master parts, all-gathers them into the layers
+                    self._zero[st].update(step_grads, lr=lr)
+                else:
+                    self.basic_optimizer.update(step_grads, self._ensure_opt_state(st),
+                                                self._masters[st], lr=lr,
+                                                names=self._names[st])
+                    if self.compute_dtype != torch.float32:
+                        torch._foreach_copy_([p.data for p in self._params[st]],
+                                             self._masters[st])
                 torch._foreach_zero_(self._acc[st])
             self._sync_tied_params()
             if self.lr_scheduler is not None:
@@ -751,9 +835,67 @@ class PipelineEngine:
         return True
 
     def master_params(self):
-        """Named fp32 masters of every stage (tied users included)."""
-        return {n: m for names, masters in zip(self._names, self._masters)
-                for n, m in zip(names, masters)}
+        """Named whole fp32 masters of every stage (tied users included;
+        gathered over the data and model groups, a collective of every
+        rank when the mesh has more than one)."""
+        return {n: m for s in range(self.num_stages)
+                for n, m in zip(self._names[s], self._whole_masters(s))}
+
+    # -- whole tensors: a rank's parts gathered, and cut back ------------
+    def _whole_tp(self, t, s, i):
+        place = self._tp[s][i]
+        return t if place is None else tp.whole_of(t, place[0], self._mp_group, place[1])
+
+    def _tp_part(self, t, s, i):
+        place = self._tp[s][i]
+        if place is None:
+            return t
+        return tp.local_part(t, place[0], self.mesh.rank(MODEL_AXIS), self.mp_world_size,
+                             place[1])
+
+    def _whole_masters(self, s):
+        if self._zero is not None:
+            return [] if self._zero[s] is None else self._zero[s].master_params()
+        return [self._whole_tp(m, s, i) for i, m in enumerate(self._masters[s])]
+
+    def _load_whole_masters(self, s, values):
+        if self._zero is not None:
+            if self._zero[s] is not None:
+                self._zero[s].load_master_params(values)
+            return
+        torch._foreach_copy_(self._masters[s], [
+            self._tp_part(v.to(self.device, torch.float32), s, i)
+            for i, v in enumerate(values)])
+        if self.compute_dtype != torch.float32:
+            torch._foreach_copy_([p.data for p in self._params[s]], self._masters[s])
+
+    def _whole_opt_state(self, s):
+        """Stage ``s``'s optimizer state with whole tensors: {field: one
+        tensor a parameter, or a scalar}."""
+        if self._zero is not None:
+            return {} if self._zero[s] is None else self._zero[s].whole_state()
+        state = self._ensure_opt_state(s)
+        out = {}
+        for f in dataclasses.fields(state):
+            val = getattr(state, f.name)
+            if isinstance(val, list):
+                val = [self._whole_tp(t, s, i) for i, t in enumerate(val)]
+            out[f.name] = val
+        return out
+
+    def _load_whole_opt_state(self, s, saved):
+        if self._zero is not None:
+            if self._zero[s] is not None:
+                self._zero[s].load_whole_state(saved)
+            return
+        state = self._ensure_opt_state(s)
+        for f in dataclasses.fields(state):
+            cur = getattr(state, f.name)
+            if isinstance(cur, list):
+                torch._foreach_copy_(cur, [self._tp_part(v.to(c.device), s, i)
+                                           for i, (c, v) in enumerate(zip(cur, saved[f.name]))])
+            else:
+                setattr(state, f.name, type(cur)(saved[f.name]))
 
     # ------------------------------------------------------------------
     # checkpointing: per-layer files
@@ -765,54 +907,57 @@ class PipelineEngine:
         return self._ckpt_storage
 
     def _gather_layer_params(self):
-        """Per layer (by global index): its fp32 masters by parameter name,
-        or None for a layer without parameters."""
+        """Per layer (by global index): its whole fp32 masters by parameter
+        name, or None for a layer without parameters (a collective of every
+        rank when the mesh has more than one)."""
         out = [None] * self.module._num_layers
+        whole = [self._whole_masters(s) for s in range(self.num_stages)]
         for idx, (s, a, b) in self._layer_slot.items():
             prefix = f"layer_{idx:02d}."
             out[idx] = {n[len(prefix):]: m for n, m in
-                        zip(self._names[s][a:b], self._masters[s][a:b])}
+                        zip(self._names[s][a:b], whole[s][a:b])}
         return out
 
     def _split_opt_state_per_layer(self):
-        """Each stage's optimizer state split per layer: the list fields
-        (one tensor a parameter) by layer, the rest (the step) once."""
+        """Each stage's whole optimizer state split per layer: the list
+        fields (one tensor a parameter) by layer, the rest (the step)
+        once."""
         opt_global, opt_layers = {}, [dict() for _ in range(self.module._num_layers)]
         for s in range(self.num_stages):
-            state = self._ensure_opt_state(s)
-            for f in dataclasses.fields(state):
-                val = getattr(state, f.name)
+            for name, val in self._whole_opt_state(s).items():
                 if isinstance(val, list):
                     for idx, (st, a, b) in self._layer_slot.items():
                         if st == s:
-                            opt_layers[idx][f.name] = val[a:b]
+                            opt_layers[idx][name] = val[a:b]
                 else:
-                    opt_global[f.name] = val
+                    opt_global[name] = val
         return opt_global, opt_layers
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True):
-        """Rank 0 writes every layer's fp32 masters, the optimizer state per
-        layer and the meta file, then commits the manifest; every rank
-        meets at the commit barrier."""
+        """Every rank gathers the whole fp32 masters and optimizer state;
+        rank 0 writes them per layer with the meta file, then commits the
+        manifest; every rank meets at the commit barrier."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         with (self._tracer.span("train/checkpoint_save", cat="train",
                                 args={"tag": tag, "step": self.global_steps})
               if self._tracer.enabled else _NULL_SPAN):
+            layers = self._gather_layer_params()
+            opt = self._split_opt_state_per_layer()
             if self.global_rank == 0:
-                self._write_tag(save_dir, tag, client_state or {}, save_latest)
+                self._write_tag(save_dir, tag, client_state or {}, save_latest, layers, opt)
             self._ckpt_commit_barrier(tag)
         if self.resilience is not None:
             self.resilience.note_checkpoint(save_dir, tag)
         return True
 
-    def _write_tag(self, save_dir, tag, client_state, save_latest):
+    def _write_tag(self, save_dir, tag, client_state, save_latest, layers, opt):
         storage = self.checkpoint_storage
         writer = storage.tag_writer(save_dir, tag)
-        for idx, p in enumerate(self._gather_layer_params()):
+        for idx, p in enumerate(layers):
             if p is not None:
                 writer.write_file(f"layer_{idx:02d}-model_states.pt", _serialize(_host_tree(p)))
-        opt_global, opt_layers = self._split_opt_state_per_layer()
+        opt_global, opt_layers = opt
         writer.write_file("optim_states.pt", _serialize(_host_tree(
             {"global": opt_global, "layers": opt_layers})))
         meta = dict(
@@ -833,7 +978,7 @@ class PipelineEngine:
         """Deadline-bounded rendezvous at the commit point (as the
         DeepSpeedEngine's); one process without a deadline skips it."""
         timeout_s = self._config.resilience_config.comm_timeout_s or 0.0
-        if self.dp_world_size > 1 or timeout_s > 0:
+        if dist.get_world_size() > 1 or timeout_s > 0:
             comm.barrier(f"ckpt_commit:{tag}", timeout_s=timeout_s or None)
 
     def load_checkpoint(self, load_dir, tag=None, **kwargs):
@@ -889,30 +1034,32 @@ class PipelineEngine:
             raise ValueError(f"checkpoint has {meta['num_layers']} layers, the module "
                              f"{self.module._num_layers}")
         with torch.no_grad():
-            # files are per layer: any stage count re-slices them
-            for idx, (s, a, b) in self._layer_slot.items():
-                prefix = f"layer_{idx:02d}."
-                saved = layers[idx]
-                values = [saved[n[len(prefix):]] for n in self._names[s][a:b]]
-                torch._foreach_copy_(self._masters[s][a:b],
-                                     [v.to(self.device, torch.float32) for v in values])
-                if self.compute_dtype != torch.float32:
-                    torch._foreach_copy_([p.data for p in self._params[s][a:b]],
-                                         self._masters[s][a:b])
+            # files are per layer of whole tensors: any stage count re-slices
+            # them, and each rank cuts its data and model parts
+            for s in range(self.num_stages):
+                idxs = sorted((a, idx) for idx, (st, a, _) in self._layer_slot.items()
+                              if st == s)
+                values = []
+                for _, idx in idxs:
+                    prefix = f"layer_{idx:02d}."
+                    _, a, b = self._layer_slot[idx]
+                    values += [layers[idx][n[len(prefix):]] for n in self._names[s][a:b]]
+                if values:
+                    self._load_whole_masters(s, values)
             self._opt_state = [None] * self.num_stages
+            for z in self._zero or ():
+                if z is not None:
+                    z.state = None
             if opt is not None and opt.get("global"):
                 for s in range(self.num_stages):
-                    state = self._ensure_opt_state(s)
-                    for f in dataclasses.fields(state):
-                        cur = getattr(state, f.name)
-                        if isinstance(cur, list):
-                            for idx, (st, a, b) in self._layer_slot.items():
-                                if st == s:
-                                    torch._foreach_copy_(cur[a:b], [
-                                        v.to(c.device) for c, v in
-                                        zip(cur[a:b], opt["layers"][idx][f.name])])
-                        else:
-                            setattr(state, f.name, type(cur)(opt["global"][f.name]))
+                    idxs = [idx for _, idx in sorted(
+                        (a, idx) for idx, (st, a, _) in self._layer_slot.items() if st == s)]
+                    if not idxs:
+                        continue
+                    saved = dict(opt["global"])
+                    for name in opt["layers"][idxs[0]]:
+                        saved[name] = [t for idx in idxs for t in opt["layers"][idx][name]]
+                    self._load_whole_opt_state(s, saved)
             for acc in self._acc:
                 torch._foreach_zero_(acc)
         self.global_steps = meta["global_steps"]

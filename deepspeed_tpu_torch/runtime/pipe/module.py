@@ -285,6 +285,18 @@ class PipelineModule(nn.Module):
         self._jax_states = {}
         self._materialized = True
 
+    def shard_layers(self, mesh):
+        """Tensor parallelism inside every stage: Megatron layers in place
+        of each layer's matched linears and embeddings (``tp.shard_params``
+        under the mesh's model axis), after the weights are drawn, so a
+        layer keeps the weights its ``base_seed + index`` generator drew
+        at tensor_parallel 1. A no-op at model size 1."""
+        from deepspeed_tpu_torch.parallel import tp
+
+        for layer in self._built:
+            if isinstance(layer, nn.Module):
+                tp.shard_params(layer, mesh)
+
     # -- forward ---------------------------------------------------------
     def apply_layer(self, idx, x, dropout_seed=None, deterministic=None):
         """Layer ``idx`` on ``x`` (a tensor or a tuple of inputs). A layer

@@ -6,9 +6,12 @@ data-parallel size, as the JAX engine resolves it); a
 ``mesh.data_parallel_size`` that does not cover the world with
 ``tensor_parallel`` is refused by name (one process a rank: the launcher
 sizes the world); ZeRO-3 with tensor parallelism is refused with the JAX
-engine's message; the ``parallel`` section, the serving mesh knobs and
-ZeRO or tensor parallelism under the pipeline are still refused by name,
-pointing at slice 8c.
+engine's message. The ``parallel`` section parses as the JAX package's
+``get_parallel_config`` does, forms and errors alike (the cases of
+``tests/unit/test_sharding_registry.py:169-252``); the serving mesh knobs
+build an engine, and serving partition rules that restate the built-in
+placements are honored while any other placement is refused, naming the
+leaf; ZeRO, the mesh sections and ``mpu=`` build a pipeline.
 """
 
 import numpy as np
@@ -119,31 +122,136 @@ def test_batch_triple_resolves_at_the_data_parallel_size():
     {"parallel": {"mesh_shape": [1, 2]}}, {"parallel": {"partition_rules": []}},
 ])
 def test_parallel_section_is_still_refused(section):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tconfig.DeepSpeedConfig({"train_batch_size": 4, **section}, world_size=1)
+    """No longer refused: the section parses as the JAX package's does."""
+    from deepspeed_tpu.runtime import config as jconfig
+
+    got = tconfig.DeepSpeedConfig({"train_batch_size": 4, **section}, world_size=1)
+    want = jconfig.get_parallel_config(section)
+    assert got.parallel_config.enabled and vars(got.parallel_config) == vars(want)
+
+
+def _parse(get, section):
+    try:
+        return vars(get(section))
+    except ValueError as e:
+        return f"ValueError: {e}"
+
+
+@pytest.mark.parametrize("section", [
+    {}, {"parallel": {}}, {"parallel": {"enabled": False, "mesh_shape": [1, 2]}},
+    {"parallel": {"mesh_shape": [1, 4]}}, {"parallel": {"mesh_shape": (2, 2)}},
+    {"parallel": {"mesh_shape": {"model": 2}}}, {"parallel": {"mesh_shape": {"data": 2}}},
+    {"parallel": {"mesh_shape": {"rows": 2}}}, {"parallel": {"mesh_shape": [1, 2, 3]}},
+    {"parallel": {"mesh_shape": 4}}, {"parallel": {"mesh_shape": [1, 0]}},
+    {"parallel": {"mesh_shape": [1, True]}}, {"parallel": {"mesh_shape": [1, 2.0]}},
+    {"parallel": {"mesh_shape": [1, 2],
+                  "partition_rules": [["qkv/kernel$", [None, None, "model"]]]}},
+    {"parallel": {"partition_rules": [["(", [None]]]}},
+    {"parallel": {"partition_rules": [["x", ["pipe"]]]}},
+    {"parallel": {"partition_rules": ["x"]}},
+    {"parallel": {"partition_rules": "x"}},
+    {"parallel": {"partition_rules": [[1, [None]]]}},
+    {"parallel": {"replicate_unmatched": "yes"}},
+    {"parallel": {"replicate_unmatched": False, "partition_rules": []}},
+])
+def test_get_parallel_config_equals_jax(section):
+    """Forms, defaults and error messages of ``get_parallel_config`` are
+    the JAX package's."""
+    from deepspeed_tpu.runtime import config as jconfig
+
+    assert _parse(tconfig.get_parallel_config, section) == \
+        _parse(jconfig.get_parallel_config, section)
+
+
+def _tiny_serving_model(heads=2):
+    cfg = GPT2Config(vocab_size=64, hidden_size=16 * heads, num_hidden_layers=1,
+                     num_attention_heads=heads, max_position_embeddings=32)
+    return init_gpt2(cfg, device="cpu"), cfg
 
 
 @pytest.mark.parametrize("knob", [{"mesh_shape": (1, 2)},
                                   {"partition_rules": [["qkv", [None, "model"]]]}])
 def test_serving_mesh_knobs_point_at_slice_8c(knob):
+    """Slice 8c ported them: a mesh of two ranks needs two processes (the
+    registry's named error at world 1); rules without a mesh build the
+    single-device engine."""
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.parallel.sharding_registry import ShardingRegistryError
+
+    model, cfg = _tiny_serving_model()
+    if "mesh_shape" in knob:
+        with pytest.raises(ShardingRegistryError, match=r"needs 2 ranks, have 1"):
+            ServingEngine(model, cfg, ServingConfig(**knob), device="cpu")
+    else:
+        eng = ServingEngine(model, cfg, ServingConfig(**knob), device="cpu")
+        assert eng.mesh is None and eng.local_heads == 2
+
+
+@pytest.mark.parametrize("rules", [
+    None, [], [["qkv/kernel$", [None, None, "model"]]],
+    [["(attn_out|ff2)/kernel$", [None, "model", None]], ["ln_f/scale$", []]],
+    [["^serving/kv_pool$", [None, None, "model", None, None]]],
+])
+def test_serving_rules_restating_the_builtin_placements_are_honored(rules):
     from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
 
-    cfg = GPT2Config(vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
-                     max_position_embeddings=32)
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        ServingEngine(init_gpt2(cfg, device="cpu"), cfg, ServingConfig(**knob), device="cpu")
+    model, cfg = _tiny_serving_model()
+    eng = ServingEngine(model, cfg, ServingConfig(mesh_shape=(1, 1), partition_rules=rules),
+                        device="cpu")
+    assert eng.mesh is not None and eng.pool.n_heads == 2
 
 
-@pytest.mark.parametrize("extra,kw,match", [
-    ({"tensor_parallel": {"size": 2}}, {}, "tensor_parallel under a pipeline"),
-    ({"mesh": {"data_parallel_size": 1}}, {}, "mesh under a pipeline"),
-    ({"zero_optimization": {"stage": 2}}, {}, "under a pipeline"),
-    ({}, {"mpu": _Mpu()}, "mpu"),
+@pytest.mark.parametrize("rules,leaf", [
+    ([["wte/embedding$", ["model", None]]], "params/transformer/wte/embedding"),
+    ([["qkv/kernel$", [None, "model", None]]],
+     "params/transformer/layers/DeepSpeedTransformerLayer_0/qkv/kernel"),
+    ([["ff1/kernel$", []]], "params/transformer/layers/DeepSpeedTransformerLayer_0/ff1/kernel"),
+    ([["ln_f/scale$", ["model"]]], "params/transformer/ln_f/scale"),
+    ([["^serving/kv_pool$", [None, "model"]]], "serving/kv_pool"),
+    ([["ff2/kernel$", [None, "data", None]]],
+     "params/transformer/layers/DeepSpeedTransformerLayer_0/ff2/kernel"),
 ])
-def test_zero_and_tp_under_the_pipeline_point_at_slice_8c(extra, kw, match):
+def test_serving_rules_placing_a_leaf_elsewhere_are_refused_by_name(rules, leaf):
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+
+    model, cfg = _tiny_serving_model()
+    with pytest.raises(NotImplementedError, match=f"place '{leaf}' as"):
+        ServingEngine(model, cfg, ServingConfig(mesh_shape=(1, 1), partition_rules=rules),
+                      device="cpu")
+
+
+def test_serving_engine_from_config_takes_the_parallel_block():
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+
+    model, cfg = _tiny_serving_model()
+    eng = ServingEngine.from_config(model, cfg, {
+        "train_batch_size": 1, "serving": {"max_seq_len": 32},
+        "parallel": {"mesh_shape": {"model": 1}}}, device="cpu")
+    assert eng.mesh is not None and eng.config.mesh_shape == (1, 1)
+    assert ServingEngine.from_config(model, cfg, {"train_batch_size": 1},
+                                     device="cpu").mesh is None
+
+
+@pytest.mark.parametrize("extra,kw", [
+    ({"tensor_parallel": {"size": 1}}, {}),
+    ({"mesh": {"data_parallel_size": 1}}, {}),
+    ({"zero_optimization": {"stage": 2}}, {}),
+    ({}, {"mpu": _Mpu()}),
+])
+def test_zero_and_tp_under_the_pipeline_point_at_slice_8c(extra, kw):
+    """Slice 8c ported them: each builds a pipeline that trains; a model
+    size the world does not divide raises the JAX pipe's message."""
     layers = [torch.nn.Linear(8, 8), torch.nn.Linear(8, 8)]
     module = PipelineModule(layers, num_stages=2,
                             loss_fn=lambda out, y: ((out - y) ** 2).mean())
-    with pytest.raises(NotImplementedError, match=match) as e:
-        dt.initialize(model=module, config_params=_cfg(**extra), device="cpu", **kw)
-    assert "slice 8c" in str(e.value)
+    engine, _, _, _ = dt.initialize(model=module, config_params=_cfg(**extra), device="cpu",
+                                    **kw)
+    g = torch.Generator().manual_seed(0)
+    batch = (torch.randn(4, 8, generator=g), torch.randn(4, 8, generator=g))
+    assert np.isfinite(engine.train_batch(iter([batch])))
+    module = PipelineModule([torch.nn.Linear(8, 8)], num_stages=1,
+                            loss_fn=lambda out, y: ((out - y) ** 2).mean())
+    with pytest.raises(AssertionError, match="devices per stage 1 not divisible by "
+                                             "tensor_parallel size 2"):
+        dt.initialize(model=module, config_params=_cfg(tensor_parallel={"size": 2}),
+                      device="cpu")

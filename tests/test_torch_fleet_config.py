@@ -102,5 +102,10 @@ def test_handoff_parser_the_replica_calls(handoff):
 
 
 def test_serving_mesh_knobs_stay_refused():
-    """The tensor-parallel mesh belongs to a later slice."""
-    assert set(tserving_config.UNPORTED_KNOBS) == {"mesh_shape", "partition_rules"}
+    """The tensor-parallel mesh knobs are no longer refused: they are
+    ``ServingConfig`` fields with the JAX package's defaults, and the
+    engine arms its mesh from them (tests/test_torch_serving_tp.py)."""
+    assert not hasattr(tserving_config, "UNPORTED_KNOBS")
+    for knob in ("mesh_shape", "partition_rules", "replicate_unmatched"):
+        assert getattr(tserving_config.ServingConfig(), knob) == \
+            getattr(jserving_config.ServingConfig(), knob), knob

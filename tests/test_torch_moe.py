@@ -126,3 +126,85 @@ def test_expert_shardings_split_only_a_moe_group():
     sh2 = T.expert_shardings(None, tree)
     assert sh2["dense"]["w1"] == (Replicate(),) * 3
     assert sh2["moe"]["w2"] == (Replicate(), Shard(0), Replicate())
+
+
+def _jax_moe_model():
+    """The flax model of ``tests/unit/test_moe.py:108-142`` and its data
+    (B = 8 rows of 8 tokens), with its initial parameters."""
+    import flax.linen as nn
+
+    class TinyMoE(nn.Module):
+        @nn.compact
+        def __call__(self, x, y):
+            h = nn.Dense(16)(x)
+            h, aux = J.MoELayer(J.MoEConfig(num_experts=4, d_model=16, d_ff=32))(h)
+            logits = nn.Dense(4)(h)
+            return jnp.mean((logits - y) ** 2) + 0.01 * aux
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 8, 8).astype(np.float32)
+    y = rng.randn(8, 8, 4).astype(np.float32)
+    model = TinyMoE()
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(y))
+    return model, params, x, y
+
+
+def test_moe_model_of_the_jax_engine_test_matches_jax_losses():
+    """``test_moe_layer_trains_through_engine``'s model and data through
+    both engines from the same weights: the JAX engine data-parallel on its
+    8 virtual devices, the port at world 1; 8 Adam steps, losses 1e-5."""
+    import deepspeed_tpu
+
+    model, params, x, y = _jax_moe_model()
+    np_params = _NP(params)               # the engine donates its buffers
+    B = x.shape[0]
+    engine, _, _, _ = deepspeed_tpu.initialize(
+        model=model, model_parameters=params,
+        config_params={"train_batch_size": B,
+                       "train_micro_batch_size_per_gpu": B // len(jax.devices()),
+                       "optimizer": {"type": "Adam", "params": {"lr": 1e-2}}})
+    want = []
+    for _ in range(8):
+        loss = engine(jnp.asarray(x), jnp.asarray(y))
+        engine.backward(loss)
+        engine.step()
+        want.append(float(jax.device_get(loss)))
+    got = W.moe_engine_run(dict(params=np_params, x=x, y=y, steps=8))["losses"]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[-1] < got[0]
+
+
+def test_expert_parallel_moe_under_initialize_at_world2_equals_world1(tmp_path):
+    """The experts split over 2 gloo ranks (2 of 4 a rank, each rank on half
+    the batch) train as the whole layer on the whole batch at world 1: the
+    expert gradients are not averaged over the data group but scaled by
+    1 / 2, every other gradient averaged. Capacity 4 x the even share, so
+    no token drops, and no aux loss (a per-rank aux loss averaged over the
+    ranks is not the global one); losses and masters within 1e-6."""
+    _, params, x, y = _jax_moe_model()
+    spec = dict(params=_NP(params), x=x, y=y, steps=4,
+                net=dict(capacity_factor=4.0, aux_weight=0.0))
+    ranks = W.spawn(W.moe_engine_worker, 2, tmp_path, spec)
+    want = W.moe_engine_run(spec)
+    np.testing.assert_allclose(np.mean([r["losses"] for r in ranks], axis=0), want["losses"],
+                               rtol=1e-6)
+    for k, v in want["masters"].items():
+        for r in ranks:
+            torch.testing.assert_close(r["masters"][k], v, rtol=0, atol=1e-6, msg=k)
+
+
+def test_expert_parallel_moe_with_zero_is_refused_by_name(tmp_path):
+    """ZeRO with split experts is queued (ROADMAP.md): refused at build."""
+    _, params, x, y = _jax_moe_model()
+    model = W.MoENet(_NP(params))
+    model.moe.group = object()          # stands in for a group of two ranks
+    original = T.comm.group_size
+    T.comm.group_size = lambda g: 2 if g is model.moe.group else original(g)
+    try:
+        with pytest.raises(NotImplementedError, match=r"ZeRO \(zero_optimization.stage > 0\) "
+                                                      "with an expert-parallel MoELayer"):
+            dt.initialize(model=model, config={
+                "train_batch_size": 8, "zero_optimization": {"stage": 1},
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-2}}}, device="cpu")
+    finally:
+        T.comm.group_size = original

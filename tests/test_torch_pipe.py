@@ -273,16 +273,38 @@ def test_only_train_batch_and_eval():
 
 @pytest.mark.parametrize("extra,kw,match", [
     ({"pipeline": {"executor": "compiled"}}, {}, "executor 'compiled'"),
-    ({"zero_optimization": {"stage": 1}}, {}, "zero_optimization.stage > 0 under a pipeline"),
-    ({"tensor_parallel": {"size": 2}}, {}, "tensor_parallel"),
-    ({"mesh": {"data_parallel_size": 1}}, {}, "mesh"),
-    ({"parallel": {"tensor": 2}}, {}, "parallel"),
-    ({}, {"mpu": object()}, "mpu"),
+    ({"zero_optimization": {"stage": 1, "cpu_offload": True}}, {},
+     "cpu_offload under a pipeline"),
 ])
 def test_pipeline_refusals_by_name(extra, kw, match):
     module = PipelineModule(_torch_layers(False), num_stages=2, loss_fn=mse_loss)
     with pytest.raises(NotImplementedError, match=match):
         dt.initialize(model=module, config_params=_config(extra), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("extra,with_mpu", [
+    ({"zero_optimization": {"stage": 1}}, False),
+    ({"zero_optimization": {"stage": 2}}, False),
+    ({"zero_optimization": {"stage": 3}}, False),
+    ({"tensor_parallel": {"size": 1}, "mesh": {"data_parallel_size": 1}}, False),
+    ({"parallel": {"mesh_shape": [1, 1]}}, False),
+    ({}, True),
+])
+def test_pipeline_accepts_zero_tensor_parallel_mesh_and_mpu(extra, with_mpu):
+    """ZeRO 1-3, the mesh sections, a parallel block and ``mpu=`` build a
+    pipeline; at world 1 its losses are the plain pipeline's."""
+    from deepspeed_tpu_torch.parallel.mesh import MeshMpu, create_mesh
+
+    kw = {"mpu": MeshMpu(create_mesh())} if with_mpu else {}
+    data = _data(6)
+    plain = _torch_engine(2)
+    want = [plain.train_batch(iter(_torch_batches(data[i:i + 2]))) for i in (0, 2, 4)]
+    module = PipelineModule(_torch_layers(False), num_stages=2, loss_fn=mse_loss,
+                            partition_method="uniform")
+    engine, _, _, _ = dt.initialize(model=module, config_params=_config(extra),
+                                    device="cpu", **kw)
+    got = [engine.train_batch(iter(_torch_batches(data[i:i + 2]))) for i in (0, 2, 4)]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_pipeline_section_is_accepted_and_interleave_needs_divisible_micro_batches():

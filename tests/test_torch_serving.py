@@ -232,13 +232,13 @@ def test_cpu_engine_launches_no_kernel(models):
 
 
 def test_engine_rejects_unported_and_tpu_knobs(models):
-    """The mesh knobs stay refused by name; the slice's knobs and the flash
-    backend build an engine now (their behaviour is tested in
-    test_torch_speculative.py and test_torch_serving_features.py)."""
+    """The mesh knobs build an engine now (a (1, 1) mesh at world 1, rules
+    without a mesh the single-device engine; the mesh is tested in
+    test_torch_serving_tp.py), and so do the slice's knobs and the flash
+    backend (test_torch_speculative.py, test_torch_serving_features.py)."""
     _, _, cfg, model = models
-    for knob, val in (("mesh_shape", (1, 1)), ("partition_rules", (("x", None),))):
-        with pytest.raises(NotImplementedError, match=knob):
-            _engine(model, cfg, **{knob: val})
+    assert _engine(copy.deepcopy(model), cfg, mesh_shape=(1, 1)).mesh is not None
+    assert _engine(model, cfg, partition_rules=(("x", None),)).mesh is None
     for knob, val in (("speculative_k", 2), ("prefill_chunk_tokens", 4),
                       ("prefix_cache_mb", 1.0), ("host_mem_watermark_mb", 10.0),
                       ("fault_injection", {"slow_decode": {"seconds": 0.0}})):

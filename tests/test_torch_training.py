@@ -286,11 +286,11 @@ def test_config_errors_match_jax(tmp_path):
 @pytest.mark.parametrize("section", [
     {"csv_monitor": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
-    {"parallel": {"partition_rules": [["qkv/kernel$", [None, "model"]]]}},
-    {"parallel": {"enabled": True}},
+    {"tensorboard": {"enabled": True, "output_path": "runs"}},
+    {"csv_monitor": {"enabled": True, "job_name": "j"}},
     {"sentinel": {"enabled": True}}, {"memory_breakdown": True},
     {"flops_profiler": {"enabled": True, "profile_step": 2}},
-    {"parallel": {"mesh_shape": [1, 2]}},
+    {"sentinel": {"enabled": True, "max_recompiles": 2}},
     {"flops_profiler": {"enabled": True}},
     {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
     {"activation_checkpointing": {"enabled": True, "partition_activations": True}},

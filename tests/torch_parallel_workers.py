@@ -353,3 +353,281 @@ class _MSE(torch.nn.Module):
 
     def forward(self, x, y):
         return ((self.net(x) - y) ** 2).mean()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_serving_tp.py: the serving engine on a (1, world) mesh
+# ---------------------------------------------------------------------------
+
+def _serving_model(spec):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(**spec["model"])
+    return GPT2LMHeadModel.from_jax_params(spec["params"], cfg).eval(), cfg
+
+
+def serve_mesh(rank, spec, serving, clock_jump=None, passes=1, model_kw=None):
+    """One engine on the mesh: rank 0 submits ``spec["prompts"]`` and drains,
+    the others follow. ``clock_jump`` = (step, seconds) moves rank 0's clock
+    forward after that step. Returns rank 0's tokens (or errors), every
+    rank's per-step (step, timed_out, completed) record, the pool's local
+    shape and bytes."""
+    import time as _time
+
+    from deepspeed_tpu_torch.inference.serving.config import ServingConfig
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+
+    if model_kw is not None:
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config, init_gpt2
+
+        cfg = GPT2Config(**model_kw)
+        model = init_gpt2(cfg, device="cpu")
+    else:
+        model, cfg = _serving_model(spec)
+    if isinstance(serving, dict) and serving.get("from_config"):
+        eng = ServingEngine.from_config(model, cfg, serving["from_config"], device="cpu")
+    else:
+        eng = ServingEngine(model, cfg, ServingConfig(**serving), device="cpu")
+    steps = []
+    offset = [0.0]
+    real = _time.monotonic
+    if clock_jump is not None and rank == 0:
+        _time.monotonic = lambda: real() + offset[0]
+    try:
+        if rank == 0:
+            futs = []
+            for _ in range(passes):
+                futs += [eng.submit(p, max_new_tokens=n, timeout_s=t)
+                         for p, n, t in spec["requests"]]
+                while eng.pending():
+                    eng.step()
+                    steps.append((eng._step_count, eng.scheduler.timed_out,
+                                  eng.scheduler.completed))
+                    if clock_jump is not None and eng._step_count == clock_jump[0]:
+                        offset[0] = clock_jump[1]
+            eng.close()
+            tokens = []
+            for f in futs:
+                try:
+                    tokens.append(f.result(timeout=0))
+                except Exception as exc:  # noqa: BLE001 (reported to the test)
+                    tokens.append(type(exc).__name__)
+        else:
+            with_submit = None
+            try:
+                eng.submit([1], max_new_tokens=1)
+            except RuntimeError as exc:
+                with_submit = str(exc)
+            while eng.step() is not None:
+                steps.append((eng._step_count, eng.scheduler.timed_out, eng.scheduler.completed))
+            tokens = with_submit
+    finally:
+        _time.monotonic = real
+    return dict(tokens=tokens, steps=steps, pool_shape=tuple(eng.pool.k.shape),
+                pool_bytes=eng.pool.nbytes(), prefix=eng.prefix_stats(),
+                layer_types=[type(m).__name__ for m in (eng.model.layers[0].qkv,
+                                                        eng.model.layers[0].attn_out,
+                                                        eng.model.layers[0].ff1,
+                                                        eng.model.layers[0].ff2,
+                                                        eng.model.wte)])
+
+
+def serving_tp_worker(rank, world, spec):
+    """Every case of ``spec["cases"]`` (name -> {"serving": config, and
+    optionally "jump", "passes", "model"}) on the mesh, in one process
+    group; a case whose engine refuses to build reports the error's type
+    and text."""
+    out = {}
+    for name, case in spec["cases"].items():
+        try:
+            out[name] = serve_mesh(rank, dict(spec, requests=case.get("requests",
+                                                                   spec["requests"])),
+                                   case["serving"], clock_jump=case.get("jump"),
+                                   passes=case.get("passes", 1),
+                                   model_kw=case.get("model"))
+        except Exception as exc:  # noqa: BLE001 (reported to the test)
+            out[name] = {"error": f"{type(exc).__name__}: {exc}"}
+            torch.distributed.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pipe_tp.py: ZeRO and tensor parallelism under the pipeline
+# ---------------------------------------------------------------------------
+
+PIPE_HIDDEN = 16
+
+
+class PipeDense(torch.nn.Module):
+    """``tests/unit/test_pipe.py``'s DenseLayer."""
+    param_count = PIPE_HIDDEN * PIPE_HIDDEN
+
+    def __init__(self):
+        super().__init__()
+        self.dense = torch.nn.Linear(PIPE_HIDDEN, PIPE_HIDDEN)
+
+    def forward(self, x):
+        return self.dense(x)
+
+    @staticmethod
+    def jax_state_dict(tree):
+        p = tree["params"]["Dense_0"]
+        return {"dense.weight": _t(np.asarray(p["kernel"]).T), "dense.bias": _t(p["bias"])}
+
+
+class PipeRelu(torch.nn.Module):
+    param_count = 0
+
+    def forward(self, x):
+        return torch.relu(x)
+
+
+class TPBlock(torch.nn.Module):
+    """``tests/unit/test_pipe.py``'s TPBlock: a residual MLP whose ff1 is
+    column-parallel and ff2 row-parallel under tensor parallelism."""
+    param_count = 8 * PIPE_HIDDEN * PIPE_HIDDEN
+
+    def __init__(self):
+        super().__init__()
+        self.ff1 = torch.nn.Linear(PIPE_HIDDEN, 4 * PIPE_HIDDEN)
+        self.ff2 = torch.nn.Linear(4 * PIPE_HIDDEN, PIPE_HIDDEN)
+
+    def forward(self, x):
+        return x + self.ff2(torch.relu(self.ff1(x)))
+
+    @staticmethod
+    def jax_state_dict(tree):
+        p = tree["params"]
+        return {f"{n}.{k}": _t(np.asarray(p[n][j]).T if j == "kernel" else p[n][j])
+                for n in ("ff1", "ff2") for k, j in (("weight", "kernel"), ("bias", "bias"))}
+
+
+def _pipe_mse(out, label):
+    return torch.mean((out.float() - label.float()) ** 2)
+
+
+def pipe_tp_run(rank, world, run, ckpt_dir=None):
+    """One pipeline run of ``run`` (layers, init trees, config, data, tp, steps):
+    rank ``rank``'s data part of every global micro-batch. Returns the losses,
+    the whole masters, the names of the stage layers' types, and with
+    ``ckpt_dir`` a tag saved after ``run["save_at"]`` steps, resumed in a
+    fresh engine for the remaining steps."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.parallel.mesh import MeshMpu, create_mesh
+    from deepspeed_tpu_torch.runtime.pipe.module import LayerSpec, PipelineModule
+
+    tp = run["tp"]
+    dp = world // tp
+    drank = rank // tp
+
+    def engine():
+        kinds = {"dense": PipeDense, "relu": PipeRelu, "tp": TPBlock}
+        module = PipelineModule([LayerSpec(kinds[k]) for k in run["layers"]], num_stages=2,
+                                loss_fn=_pipe_mse, partition_method="uniform")
+        module.load_jax_params(run["init"])
+        kw = {}
+        if run.get("mpu"):
+            kw["mpu"] = MeshMpu(create_mesh(model_parallel_size=tp))
+        cfg = dict(run["config"])
+        if tp > 1 and not run.get("mpu"):
+            cfg["tensor_parallel"] = {"size": tp}
+        eng, _, _, _ = dt.initialize(model=module, config_params=cfg, device="cpu", **kw)
+        return eng
+
+    def batches():
+        rows = run["data"][0][0].shape[0] // dp
+        return iter([(_t(x[drank * rows:(drank + 1) * rows]), _t(y[drank * rows:(drank + 1) * rows]))
+                     for x, y in run["data"]])
+
+    eng = engine()
+    it = batches()
+    out = {"types": sorted({type(m).__name__ for layer in eng.module.get_layers()
+                            if isinstance(layer, torch.nn.Module) for m in layer.modules()})}
+    steps = run["steps"]
+    if ckpt_dir is None:
+        out["losses"] = [eng.train_batch(it) for _ in range(steps)]
+        out["masters"] = {k: v.clone() for k, v in eng.master_params().items()}
+        return out
+    first = [eng.train_batch(it) for _ in range(run["save_at"])]
+    eng.save_checkpoint(ckpt_dir, tag="t")
+    saved = {k: v.clone() for k, v in eng.master_params().items()}
+    rest = [eng.train_batch(it) for _ in range(steps - run["save_at"])]
+    fresh = engine()
+    fresh.load_checkpoint(ckpt_dir, tag="t")
+    loaded = {k: v.clone() for k, v in fresh.master_params().items()}
+    it2 = batches()
+    for _ in range(run["save_at"] * run["config"]["gradient_accumulation_steps"]):
+        next(it2)
+    resumed = [fresh.train_batch(it2) for _ in range(steps - run["save_at"])]
+    out.update(losses=first + rest, saved=saved, loaded=loaded, resumed=resumed,
+               masters={k: v.clone() for k, v in eng.master_params().items()},
+               resumed_masters={k: v.clone() for k, v in fresh.master_params().items()})
+    return out
+
+
+def pipe_tp_worker(rank, world, spec, ckpt_dir):
+    """Every run of ``spec`` in one process group."""
+    return {name: pipe_tp_run(rank, world, run,
+                              ckpt_dir=os.path.join(ckpt_dir, name) if run.get("save_at")
+                              else None)
+            for name, run in spec.items()}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_moe.py: an expert-parallel MoELayer under initialize()
+# ---------------------------------------------------------------------------
+
+class MoENet(torch.nn.Module):
+    """``tests/unit/test_moe.py:115-120``'s model: Dense(8 -> d), MoELayer,
+    Dense(d -> 4); MSE plus ``aux_weight`` times the aux loss. The weights
+    come from the flax tree ``params`` (Dense_0, MoELayer_0, Dense_1)."""
+
+    def __init__(self, params, experts=4, d=16, f=32, capacity_factor=1.25, aux_weight=0.01):
+        from deepspeed_tpu_torch.parallel.expert import MoEConfig, MoELayer
+
+        super().__init__()
+        p = params["params"]
+        self.inp = torch.nn.Linear(8, d)
+        self.out = torch.nn.Linear(d, 4)
+        for lin, name in ((self.inp, "Dense_0"), (self.out, "Dense_1")):
+            with torch.no_grad():
+                lin.weight.copy_(_t(np.asarray(p[name]["kernel"]).T))
+                lin.bias.copy_(_t(p[name]["bias"]))
+        self.moe = MoELayer.from_jax_params(
+            p["MoELayer_0"], MoEConfig(num_experts=experts, d_model=d, d_ff=f,
+                                       capacity_factor=capacity_factor))
+        self.aux_weight = aux_weight
+
+    def forward(self, x, y):
+        h, aux = self.moe(self.inp(x))
+        return ((self.out(h) - y) ** 2).mean() + self.aux_weight * aux
+
+
+def moe_engine_run(spec, rank=0, world=1):
+    """``spec["steps"]`` steps of ``MoENet`` through ``initialize()``: the
+    experts split over the world when it has more than one rank, each rank
+    on its rows of the global batch. Returns the losses and the whole
+    masters."""
+    import deepspeed_tpu_torch as dt
+
+    model = MoENet(spec["params"], **spec.get("net", {}))
+    if world > 1:
+        model.moe.shard_experts(torch.distributed.group.WORLD)
+    B = spec["x"].shape[0]
+    rows = B // world
+    x = _t(spec["x"])[rank * rows:(rank + 1) * rows]
+    y = _t(spec["y"])[rank * rows:(rank + 1) * rows]
+    engine, _, _, _ = dt.initialize(model=model, config={
+        "train_batch_size": B, "train_micro_batch_size_per_gpu": rows,
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-2}}}, device="cpu")
+    losses = []
+    for _ in range(spec["steps"]):
+        loss = engine(x, y)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss))
+    return dict(losses=losses, masters={k: v.clone() for k, v in engine.master_params().items()})
+
+
+def moe_engine_worker(rank, world, spec):
+    return moe_engine_run(spec, rank, world)
