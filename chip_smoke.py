@@ -273,7 +273,7 @@ prints no result line):
    memory a rank, the share of tokens equal to TP 1 bf16 (reported); d.
    GPT-2 XL's 25 heads at TP 2 raise the JAX engine's message.
    Phase 15 adds d: ZeRO and tensor parallelism under the pipeline at
-   GPT-2 large's width (GPT-2 XL's 25 heads do not split in two), 4 of 36
+   GPT-2 large's width (GPT-2 XL's 25 heads do not split in two), 2 of 36
    blocks as 2 stages, fp32 under deterministic algorithms: one process (the parent) against TP 2 (dropout 0.1) and
    data 2 x TP 2 with ZeRO-1 and ZeRO-2 (dropout 0), held as phase 16
    holds TP 1 (losses, first-step gradients, masters), each check beside
@@ -286,8 +286,30 @@ prints no result line):
    aux loss), beside a planted fault (the expert gradients averaged over
    the data group).
 
+18. (``remat``) activation checkpointing and the monitors: a. at
+   BERT-large width, 2 layers, fp32, dropout 0.1, deterministic
+   algorithms, one step's reduced gradients through ``initialize()`` with
+   no checkpointing, "nothing", "dots" and "offload_dots" (the config's
+   ``cpu_checkpointing``), each pair ``torch.equal`` or within phase 7's
+   1e-4 of each tensor's max, beside a planted fault (every host copy
+   zeroed); a Megatron-style ``checkpointing.checkpoint()`` over one layer
+   whose dropout seed ``get_cuda_rng_tracker().fork()`` gave, against the
+   same call without checkpointing, beside a planted fault (the fork
+   inside the region); b. phase 6's bf16 Adam BERT-large (24 layers, 64 x
+   128), 3 warm-up and 5 timed steps under "dots" and "offload_dots":
+   step ms, peak memory (the offload's must be lower), bytes copied D2H
+   and H2D a step, the flash launches (48/24/24 a step), the loss finite
+   and falling; c. at 2 layers in bf16 with ``tensorboard`` and
+   ``csv_monitor`` (``steps_per_print`` 2), 4 steps whose non-flush steps
+   run under ``torch.cuda.set_sync_debug_mode("error")``: the event file
+   read back through ``monitor.read_events`` (both CRCs checked) at steps
+   64, 128, 192, 256, 4 CSV rows a tag, the losses as returned; the same
+   with ``wall_clock_breakdown`` records the microstep timers; step ms
+   with the monitors armed and disarmed.
+
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad,
-zero, ckpt, resil, pld, serve6, fleet, sparse, pipe, parallel, serve_tp)
+zero, ckpt, resil, pld, serve6, fleet, sparse, pipe, parallel, serve_tp,
+remat)
 while a kernel is being worked on; such a run prints no result line.
 
 The line before the last is the kernels' JSON, with the card's name and
@@ -4932,7 +4954,7 @@ def phase_serve_tp(timer):
 
 # -- phase 15 (d): ZeRO and tensor parallelism under the pipeline -----------
 # GPT-2 large's width (GPT-2 XL's 25 heads do not split in two: the port's
-# Megatron layers hold whole heads, and phase 17 d checks that refusal), 4
+# Megatron layers hold whole heads, and phase 17 d checks that refusal), 2
 # of 36 blocks as 2 stages, fp32 under deterministic algorithms: one
 # process (the parent) against TP 2 (2 rank processes, dropout 0.1) and
 # data 2 x TP 2 with ZeRO-1 and ZeRO-2 (4 rank processes, dropout 0: a data
@@ -4940,7 +4962,7 @@ def phase_serve_tp(timer):
 # 12 blocks as 4 stages at TP 2, timed. The ranks talk over gloo on the one
 # card (phase 16's machinery).
 
-PTP_LAYERS, PTP_STAGES, PTP_MICRO_BATCHES, PTP_STEPS = 4, 2, 2, 2
+PTP_LAYERS, PTP_STAGES, PTP_MICRO_BATCHES, PTP_STEPS = 2, 2, 2, 2
 PTP_TIMED_LAYERS, PTP_TIMED_STAGES = 12, 4
 PTP_WARMUP, PTP_TIMED_STEPS = 1, 1          # a bf16 step takes 8-10 s over gloo
 PTP_TIMED_MICRO_BATCHES = 4
@@ -5362,8 +5384,342 @@ def _par_moe_engine(rank, world):
                 seconds=time.perf_counter() - t0)
 
 
+# -- phase 18 (remat): activation checkpointing and the monitors ------------
+REMAT_BITS_LAYERS, REMAT_BITS_BATCH = 2, 8
+REMAT_WARMUP, REMAT_STEPS = 3, 5
+REMAT_MON_LAYERS, REMAT_MON_STEPS, REMAT_MON_TIMED = 2, 4, 10
+REMAT_SETTINGS = ("none", "nothing", "dots", "offload_dots")
+
+
+def _remat_engine(setting, layers, dtype_name, batch, extra=None, seed=0):
+    """BERT-large at ``layers`` of its 24 layers through ``initialize()``:
+    activation checkpointing off ("none"), or on with the model's
+    ``checkpoint_policy`` "nothing" / "dots", or "dots" switched to
+    "offload_dots" by the config's ``cpu_checkpointing``."""
+    import deepspeed_tpu_torch as dt
+
+    policy = "dots" if setting == "offload_dots" else \
+        ("nothing" if setting == "none" else setting)
+    cfg = dt.BertConfig.bert_large(num_hidden_layers=layers, checkpoint_policy=policy)
+    model = dt.init_bert(cfg, seed=seed, device="cuda")
+    ds = {"train_batch_size": batch, "train_micro_batch_size_per_gpu": batch,
+          "gradient_accumulation_steps": 1,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+          "zero_optimization": {"stage": 0}, "steps_per_print": 1000}
+    if dtype_name == "bf16":
+        ds["bf16"] = {"enabled": True}
+    if setting != "none":
+        ds["activation_checkpointing"] = {"enabled": True,
+                                          "cpu_checkpointing": setting == "offload_dots"}
+    ds.update(extra or {})
+    engine, _, _, _ = dt.initialize(model=model, config=ds)
+    if cfg.checkpoint_activations != (setting != "none") or \
+            (setting != "none" and cfg.checkpoint_policy != setting):
+        raise RuntimeError(f"{setting}: the engine left the model at checkpoint_activations="
+                           f"{cfg.checkpoint_activations}, policy {cfg.checkpoint_policy}")
+    return engine, cfg
+
+
+def _rel_diff(got, want):
+    """(the largest |got - want| over each tensor's largest |want|, all
+    tensors equal bit for bit)."""
+    worst, equal = 0.0, True
+    for g, w in zip(got, want):
+        equal = equal and torch.equal(g, w)
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / max(float(w.float().abs().max()), 1e-30))
+    return worst, equal
+
+
+def _remat_bits():
+    """(a): one step's reduced gradients at BERT-large width, 2 layers,
+    fp32, dropout 0.1, deterministic algorithms, under the four settings,
+    each from the same weights and dropout seed; the planted faults (a
+    zeroed host copy, a fork inside the checkpointed region) must read
+    above the bound."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ckpt
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = {}
+        cfg = None
+        for setting in REMAT_SETTINGS + ("planted_zeroed_host_copy",):
+            planted = setting.startswith("planted")
+            engine, cfg = _remat_engine("offload_dots" if planted else setting,
+                                        REMAT_BITS_LAYERS, "fp32", REMAT_BITS_BATCH)
+            batch = _bert_batch(cfg, REMAT_BITS_BATCH, FS, seed=2)
+            real = ckpt._to_host
+            if planted:
+                def zeroed(t):
+                    host, done, device = real(t)
+                    if done is not None:
+                        torch.cuda.current_stream(device).wait_event(done)
+                    return torch.zeros_like(host), done, device
+                ckpt._to_host = zeroed
+            ckpt.reset_offload_stats()
+            try:
+                loss = engine(*batch)
+                engine.backward(loss)
+            finally:
+                ckpt._to_host = real
+            torch.cuda.synchronize()
+            grads[setting] = dict(loss=loss.detach().clone(), stats=ckpt.offload_stats(),
+                                  grads=[g.detach().clone() for g in
+                                         engine.allreduce_gradients()])
+            if setting == "none":
+                layer = engine.module.bert.encoder.layers[0]
+            del engine
+        want = grads["none"]
+        checks = {}
+        for setting in REMAT_SETTINGS[1:]:
+            rel, equal = _rel_diff(grads[setting]["grads"], want["grads"])
+            checks[f"{setting}_vs_none_grad_rel"] = dict(
+                reading=rel, equal=equal, bound=GRAD_TOL["fp32"],
+                loss_equal=torch.equal(grads[setting]["loss"], want["loss"]))
+        planted_rel, _ = _rel_diff(grads["planted_zeroed_host_copy"]["grads"], want["grads"])
+        checks["offload_dots_vs_none_grad_rel"]["planted"] = planted_rel
+        rel, equal = _rel_diff(grads["offload_dots"]["grads"], grads["dots"]["grads"])
+        checks["offload_dots_vs_dots_grad_rel"] = dict(reading=rel, equal=equal,
+                                                       bound=GRAD_TOL["fp32"],
+                                                       planted=planted_rel)
+        stats = grads["offload_dots"]["stats"]
+        # a Megatron-style call: checkpoint() over one layer whose dropout
+        # seed the tracker forked before the call, against the same call
+        # without checkpointing; planted: the fork inside the region
+        tracker = ckpt.get_cuda_rng_tracker()
+        ckpt.model_parallel_cuda_manual_seed(1234)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        h0 = torch.randn(REMAT_BITS_BATCH, FS, cfg.hidden_size, device="cuda", generator=gen)
+        r = torch.randn(h0.shape, device="cuda", generator=gen)
+        mask = torch.zeros(REMAT_BITS_BATCH, 1, 1, FS, device="cuda")
+        start = tracker.get_states()
+
+        def layer_grads(how, cpu):
+            ckpt.configure(None, checkpoint_in_cpu=cpu)
+            tracker.set_states(start)
+            layer.zero_grad(set_to_none=True)
+            h = h0.clone().requires_grad_()
+            if how == "plain":
+                out = layer(h, mask, False, tracker.fork())
+            elif how == "checkpoint":
+                out = ckpt.checkpoint(layer, h, mask, False, tracker.fork())
+            else:
+                out = ckpt.checkpoint(lambda x: layer(x, mask, False, tracker.fork()), h)
+            (out * r).sum().backward()
+            return [h.grad] + [p.grad.clone() for p in layer.parameters()]
+
+        for cpu in (False, True):
+            ref = layer_grads("plain", cpu)
+            rel, equal = _rel_diff(layer_grads("checkpoint", cpu), ref)
+            planted, _ = _rel_diff(layer_grads("planted", cpu), ref)
+            checks[f"megatron_checkpoint{'_cpu' if cpu else ''}_grad_rel"] = dict(
+                reading=rel, equal=equal, bound=GRAD_TOL["fp32"], planted=planted)
+        ckpt.configure(None, checkpoint_in_cpu=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("remat_checks", json.dumps(checks), flush=True)
+    failures = [f"{k}: {v}" for k, v in checks.items()
+                if not (v["equal"] or v["reading"] <= v["bound"])]
+    failures += [f"{k} is blind to its planted fault: {v}" for k, v in checks.items()
+                 if "planted" in v and not v["planted"] > v["bound"]]
+    if stats["saved"] != 4 * REMAT_BITS_LAYERS or stats["restored"] != stats["saved"]:
+        failures.append(f"offload_dots saved / restored {stats} matmul outputs, not "
+                        f"{4 * REMAT_BITS_LAYERS}")
+    if failures:
+        raise RuntimeError("remat (a): " + "; ".join(failures))
+    return dict(model=f"bert_large width, {REMAT_BITS_LAYERS} layers, fp32, dropout 0.1, "
+                      f"batch {REMAT_BITS_BATCH} x {FS}, deterministic algorithms",
+                checks=checks, offload_stats=stats,
+                losses={k: float(v["loss"]) for k, v in grads.items()})
+
+
+def _remat_cost(setting):
+    """(b): phase 6's bf16 Adam BERT-large (24 layers, 64 x 128) under
+    ``setting``: step ms, peak memory, the offload's bytes and the flash
+    launches a step, the losses."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ckpt
+
+    engine, cfg = _remat_engine(setting, 24, "bf16", FB)
+    batch = _bert_batch(cfg, FB, FS)
+    losses = [float(engine.train_step([batch])) for _ in range(REMAT_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dt.kernels.reset_launch_counts()
+    ckpt.reset_offload_stats()
+    t0 = time.perf_counter()
+    timed = [engine.train_step([batch]) for _ in range(REMAT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dt.kernels.launch_counts()
+    stats = ckpt.offload_stats()
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(x) for x in timed]
+    # report only, one more step through the three-call API: the peak up to
+    # the forward's end, and how long the side stream's D2H copies run past
+    # the forward's last kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = engine(*batch)
+    torch.cuda.current_stream().synchronize()
+    t_fwd = time.perf_counter()
+    copies = ckpt._COPY_STREAMS.get(torch.cuda.current_device())
+    if copies is not None:
+        copies.synchronize()
+    backlog_ms = 1e3 * (time.perf_counter() - t_fwd)
+    fwd_peak = torch.cuda.max_memory_allocated()
+    engine.backward(loss)
+    engine.step()
+    del engine, timed, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=1e3 * wall / REMAT_STEPS, peak_mem_bytes=peak, peak_mem_gb=peak / 2**30,
+                forward_peak_gb=fwd_peak / 2**30, d2h_backlog_after_forward_ms=backlog_ms,
+                d2h_bytes_per_step=stats["d2h_bytes"] / REMAT_STEPS,
+                h2d_bytes_per_step=stats["h2d_bytes"] / REMAT_STEPS,
+                saved_per_step=stats["saved"] / REMAT_STEPS,
+                launches={k: counts[k] for k in FLASH_KERNELS},
+                launches_per_step={k: counts[k] / REMAT_STEPS for k in FLASH_KERNELS},
+                losses=losses)
+
+
+def _pinned_copy_gbps(nbytes=1 << 30):
+    """(b), report only: the rate of one pinned D2H and one H2D copy of
+    ``nbytes`` on this machine (CUDA events, median of 3)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = nbytes / (statistics.median(times) * 1e-3) / 1e9
+    del dev, host
+    return out
+
+
+def _remat_monitors(root):
+    """(c): 2-layer bf16 BERT-large width with tensorboard + csv_monitor
+    (steps_per_print 2): 4 steps, the first and third under
+    ``set_sync_debug_mode("error")``, the files read back; the same with
+    ``wall_clock_breakdown``; step ms with the monitors armed and disarmed
+    (flushes included), each after 2 warm-up steps."""
+    from deepspeed_tpu_torch.monitor import read_events
+
+    def monitors(out, **kw):
+        return dict({"steps_per_print": 2,
+                     "tensorboard": {"enabled": True, "output_path": out, "job_name": "job"},
+                     "csv_monitor": {"enabled": True, "output_path": out, "job_name": "job"}},
+                    **kw)
+
+    def timed(extra):
+        engine, cfg = _remat_engine("dots", REMAT_MON_LAYERS, "bf16", FB, extra)
+        batch = _bert_batch(cfg, FB, FS)
+        for _ in range(2):
+            engine.train_step([batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_MON_TIMED):
+            engine.train_step([batch])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / REMAT_MON_TIMED
+        engine.close()
+        return ms
+
+    step_ms = {"disarmed": timed({}), "armed": timed(monitors(os.path.join(root, "timed")))}
+    step_ms["disarmed_again"] = timed({})
+
+    def checked(out, **kw):
+        engine, cfg = _remat_engine("dots", REMAT_MON_LAYERS, "bf16", FB, monitors(out, **kw))
+        batch = _bert_batch(cfg, FB, FS)
+        losses = []
+        for step in range(1, REMAT_MON_STEPS + 1):
+            flush = step % 2 == 0
+            if not flush:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                losses.append(engine.train_step([batch]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        engine.close()
+        files = [os.path.join(out, "job", f) for f in os.listdir(os.path.join(out, "job"))]
+        events = {}
+        for path in (f for f in files if "tfevents" in f):
+            for _, step, tag, value in read_events(path):
+                events.setdefault(tag, []).append((step, value))
+        csv_rows = {os.path.basename(f)[:-4]: open(f).read().strip().splitlines()[1:]
+                    for f in files if f.endswith(".csv")}
+        return events, csv_rows, [float(x) for x in losses]
+
+    events, csv_rows, losses = checked(os.path.join(root, "mon"))
+    want_steps = [FB * k for k in range(1, REMAT_MON_STEPS + 1)]
+    failures = []
+    for tag in ("Train/Samples/train_loss", "Train/Samples/lr"):
+        if [s for s, _ in events.get(tag, [])] != want_steps:
+            failures.append(f"{tag} steps {[s for s, _ in events.get(tag, [])]}")
+    if not np.allclose([v for _, v in events["Train/Samples/train_loss"]], losses, rtol=1e-6):
+        failures.append(f"train_loss {events['Train/Samples/train_loss']} against {losses}")
+    if set(csv_rows) != {t.replace("/", "_") for t in events} or \
+            any(len(rows) != REMAT_MON_STEPS for rows in csv_rows.values()):
+        failures.append(f"csv rows {{k: len(v) for k, v in csv_rows.items()}}")
+    bd_events, _, _ = checked(os.path.join(root, "breakdown"), wall_clock_breakdown=True)
+    for tag in ("Train/Samples/forward_microstep", "Train/Samples/backward_microstep"):
+        got = bd_events.get(tag, [])
+        if [s for s, _ in got] != want_steps or not all(v > 0 for _, v in got):
+            failures.append(f"breakdown {tag}: {got}")
+    if failures:
+        raise RuntimeError("remat (c): " + "; ".join(failures))
+    return dict(tags=sorted(events), steps=want_steps, csv_rows_per_tag=REMAT_MON_STEPS,
+                losses=losses, breakdown_ms={t: [v for _, v in bd_events[t]] for t in bd_events
+                                             if "microstep" in t},
+                step_ms=step_ms, layers=REMAT_MON_LAYERS, timed_steps=REMAT_MON_TIMED,
+                sync_debug="error on the non-flush steps 1 and 3")
+
+
+def phase_remat():
+    """Phase 18: (a) bits, (b) cost of offload_dots against dots at
+    BERT-large, (c) the monitors."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    bits = _remat_bits()
+    t1 = time.perf_counter()
+    cost = {s: _remat_cost(s) for s in ("dots", "offload_dots")}
+    pinned = _pinned_copy_gbps()
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir="build", prefix="remat_") as root:
+        mon = _remat_monitors(root)
+    t3 = time.perf_counter()
+    failures = []
+    for s, run in cost.items():
+        if run["launches_per_step"] != {k: float(v) for k, v in FLASH_PER_STEP.items()}:
+            failures.append(f"{s}: flash launches a step {run['launches_per_step']}")
+        if not all(np.isfinite(run["losses"])) or not run["losses"][-1] < run["losses"][0]:
+            failures.append(f"{s}: losses {run['losses']}")
+    off, dots = cost["offload_dots"], cost["dots"]
+    if not off["peak_mem_bytes"] < dots["peak_mem_bytes"]:
+        failures.append(f"offload peak {off['peak_mem_gb']:.3f} GiB not below dots' "
+                        f"{dots['peak_mem_gb']:.3f}")
+    if off["saved_per_step"] != 4 * 24 or dots["saved_per_step"] != 0:
+        failures.append(f"matmul outputs offloaded a step: offload {off['saved_per_step']}, "
+                        f"dots {dots['saved_per_step']}")
+    if failures:
+        raise RuntimeError("remat (b): " + "; ".join(failures))
+    return dict(bits=bits, cost=cost, monitors=mon, pinned_copy_gbps=pinned,
+                peak_saved_gb=(dots["peak_mem_bytes"] - off["peak_mem_bytes"]) / 2**30,
+                offload_step_ms_added=off["step_ms"] - dots["step_ms"],
+                seconds=dict(a=t1 - t0, b=t2 - t1, c=t3 - t2))
+
+
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad", "zero", "ckpt", "resil",
-          "pld", "serve6", "fleet", "sparse", "pipe", "parallel", "serve_tp")
+          "pld", "serve6", "fleet", "sparse", "pipe", "parallel", "serve_tp",
+          "remat")
 
 
 def _report(tag, result):
@@ -5582,6 +5938,8 @@ def main():
         parallel = _report("parallel", _phase("parallel", phase_parallel))
     if "serve_tp" in phases:
         serve_tp = _report("serve_tp", _phase("serve_tp", phase_serve_tp, timer))
+    if "remat" in phases:
+        remat = _report("remat", _phase("remat", phase_remat))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -5652,6 +6010,10 @@ def main():
                         pipe["tp"]["launches"]["tp2"][name],
                     f"bf16_{PTP_TIMED_LAYERS}_blocks_per_step":
                         pipe["tp"]["timed"][0]["launches_per_step"][name]}
+                # phase 18 (b): the offload_dots run's timed steps (24 layers,
+                # the recompute's forward included)
+                slice_launches["remat_launches"] = \
+                    remat["cost"]["offload_dots"]["launches"][name]
             entries.append(dict(
                 name=name + suffix, route="cuda", source=source, replaces=replaces,
                 launches=run["launches"][name], **slice_launches,
@@ -5717,7 +6079,7 @@ def main():
                            train=trained, train_fp16=trained_fp16,
                            grad_oracle=grad_oracle, zero=zero, ckpt=ckpt, resil=resil,
                            pld=pld, serve6=serve6, fleet=fleet, sparse=sparse, pipe=pipe,
-                           parallel=parallel, serve_tp=serve_tp,
+                           parallel=parallel, serve_tp=serve_tp, remat=remat,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)

@@ -33,7 +33,12 @@ Ported so far:
   flash kernels (``parallel/sequence.py``, ``parallel/ulysses.py``),
   Mixture-of-Experts with expert parallelism (``parallel/expert.py``) and
   1-bit Adam (``runtime/fp16/onebit_adam.py``), over the (pipe, data,
-  model) mesh of process groups (``parallel/mesh.py``).
+  model) mesh of process groups (``parallel/mesh.py``);
+- activation checkpointing (``checkpointing``: the RNG tracker,
+  ``checkpoint()``, the ``nothing`` / ``dots`` / ``offload_dots``
+  policies, the last keeping the saved matmul outputs in pinned host
+  memory) and the monitors (``monitor/``: TensorBoard event files and
+  CSV scalars, the wall-clock and memory breakdowns).
 """
 
 from deepspeed_tpu_torch import kernels
@@ -46,6 +51,7 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
     DeepSpeedTransformerConfig,
     DeepSpeedTransformerLayer,
 )
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
@@ -99,5 +105,5 @@ __all__ = ["ADAM_OPTIMIZER", "LAMB_OPTIMIZER", "BertConfig", "BertForPreTraining
            "GPT2Config", "GPT2LMHeadModel", "LayerSpec", "PipelineEngine", "PipelineModule",
            "ServingConfig", "ServingEngine", "TiedLayerSpec",
            "__version__", "add_config_arguments", "add_tuning_arguments",
-           "generate", "init_bert", "init_distributed", "init_gpt2",
+           "checkpointing", "generate", "init_bert", "init_distributed", "init_gpt2",
            "initialize", "kernels", "log_dist", "zero3_sharded_init"]

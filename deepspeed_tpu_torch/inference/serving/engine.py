@@ -77,7 +77,11 @@ decode and speculative steps' tokens) are rank 0's, broadcast. Requests
 are submitted on rank 0, whose futures and streams resolve; the other
 ranks run ``follow()`` until rank 0's ``close()``.
 
-Left out (ROADMAP.md): the monitor and the compile sentinels; on a mesh,
+A monitor (``monitor=``, or the ds_config's monitors through
+``from_config``) gets the JAX engine's ``Serving/*`` records; on a mesh
+only rank 0 records. ``close()`` flushes it.
+
+Left out (ROADMAP.md): the compile sentinels; on a mesh,
 the KV handoff, fault injection, the memory-pressure guard and int8
 weights.
 """
@@ -514,7 +518,8 @@ class ServingEngine:
     raises without a card."""
 
     def __init__(self, model, model_config, serving_config=None,
-                 device="cuda", injector=None, telemetry_config=None, rank=None):
+                 device="cuda", injector=None, telemetry_config=None, rank=None,
+                 monitor=None):
         cfg = serving_config or ServingConfig()
         self.device = resolve_device(device)
         if model_device(model) != self.device:
@@ -592,7 +597,8 @@ class ServingEngine:
             max_queue=cfg.max_queue, buckets=buckets,
             default_max_new_tokens=cfg.default_max_new_tokens,
             request_timeout_s=cfg.request_timeout_s)
-        self.metrics = ServingMetrics()
+        # on a mesh rank 0 records: the others hold no request a client sees
+        self.metrics = ServingMetrics(monitor if self._lead else None)
         self.metrics.record_kv_pool_bytes(self.pool.nbytes())
         if injector is None and cfg.fault_injection:
             injector = ServingFaultInjector(cfg.fault_injection)
@@ -851,9 +857,11 @@ class ServingEngine:
     def from_config(cls, model, model_config, ds_config, rank=0, injector=None,
                     device="cuda"):
         """Build from a ds_config (dict or ``DeepSpeedConfig``): its
-        validated ``serving`` and ``telemetry`` blocks; an enabled
+        validated ``serving`` and ``telemetry`` blocks and its monitors
+        (``monitor_from_config``); an enabled
         ``fleet.degrade`` sub-block arms the degraded-mode ladder, and a
         ``parallel`` block the tensor-parallel mesh."""
+        from deepspeed_tpu_torch.monitor import monitor_from_config
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
         if isinstance(ds_config, dict):
@@ -868,7 +876,8 @@ class ServingEngine:
                 replicate_unmatched=parallel.replicate_unmatched)
         eng = cls(model, model_config, serving_config=serving_cfg,
                   device=device, injector=injector,
-                  telemetry_config=ds_config.telemetry_config, rank=rank)
+                  telemetry_config=ds_config.telemetry_config, rank=rank,
+                  monitor=monitor_from_config(ds_config, rank))
         fleet = ds_config.fleet_config
         if fleet.enabled and fleet.degrade.enabled:
             eng.configure_degrade(fleet.degrade)
@@ -1368,6 +1377,7 @@ class ServingEngine:
             # the followers' loops end on this plan
             self._exchange_plan(time.monotonic(), stop=True)
             self._stopped = True
+        self.metrics.close()
         if self.telemetry_server is not None:
             self.telemetry_server.stop()
             self.telemetry_server = None

@@ -6,7 +6,11 @@ handoff's lifecycle; and ``RolloutMetrics``, the weight rollout's.
 Port of ``deepspeed_tpu/inference/serving/metrics.py``; the snapshot
 keys are the JAX package's, so ``Serving/PrefixHitRate`` and the rest
 read the same. All aggregation is on the host and O(1) per step; TTFT
-percentiles sort a bounded window of samples only when read.
+percentiles sort a bounded window of samples only when read. Given a
+monitor (``monitor_from_config``: tensorboard, csv, the telemetry
+bridge), each hook also records the JAX package's ``Serving/*`` and
+``Rollout/*`` scalars, which the monitor writes at ``close()`` (or its
+own auto-flush).
 """
 
 import time
@@ -26,9 +30,10 @@ def _percentile(sorted_samples, q):
 
 
 class ServingMetrics:
-    """Aggregates serving counters."""
+    """Aggregates serving counters and forwards gauges to a monitor."""
 
-    def __init__(self):
+    def __init__(self, monitor=None):
+        self.monitor = monitor
         self.decode_steps = 0
         self.tokens_emitted = 0
         self.requests_completed = 0
@@ -74,6 +79,7 @@ class ServingMetrics:
         self._ttft_count += 1
         self._ttft_max = max(self._ttft_max, ttft_s)
         self._ttft_window.append(ttft_s)
+        self._record("Serving/ttft_s", ttft_s, self._ttft_count)
 
     def record_prefill(self, tokens, requests, prefill_s, reused_tokens=0):
         """One prefill call: ``tokens`` computed (the suffix only on a
@@ -84,6 +90,10 @@ class ServingMetrics:
         self.prefill_reused_tokens += reused_tokens
         self.prefill_time_s += prefill_s
         self.prefill_requests += requests
+        if prefill_s > 0:
+            self._record("Serving/prefill_tokens_per_sec", tokens / prefill_s,
+                         self.prefill_calls)
+        self._record("Serving/prefill_batch", requests, self.prefill_calls)
 
     def record_prefill_chunk(self):
         """One chunk of a chunked prefill ran."""
@@ -94,6 +104,8 @@ class ServingMetrics:
             self.prefix_hits += 1
         else:
             self.prefix_misses += 1
+        lookups = self.prefix_hits + self.prefix_misses
+        self._record("Serving/PrefixHitRate", self.prefix_hits / lookups, lookups)
 
     def record_spill_lookup(self, hit):
         """One spill-tier consult on the counted path: ``hit`` when the
@@ -102,11 +114,15 @@ class ServingMetrics:
             self.spill_hits += 1
         else:
             self.spill_misses += 1
+        lookups = self.spill_hits + self.spill_misses
+        self._record("Serving/SpillHitRate", self.spill_hits / lookups, lookups)
 
     def record_spill_corrupt(self):
         """A spilled entry failed its checksum or framing on promotion and
         was dropped (the request fell through to a normal prefill)."""
         self.spill_corrupt_total += 1
+        self._record("Serving/spill_corrupt_total", self.spill_corrupt_total,
+                     self.spill_corrupt_total)
 
     def set_spill_sources(self, spill_stats_fn=None, host_rss_mb_fn=None):
         """Pull sources for the snapshot: ``spill_stats_fn`` -> the
@@ -126,6 +142,8 @@ class ServingMetrics:
             h[1] += prompt_len
             h[2] = min(h[2], prompt_len)
             h[3] = max(h[3], prompt_len)
+        self._record(f"Serving/admitted_prompt_len_bucket_{bucket}", prompt_len,
+                     self._admitted_by_bucket[bucket][0])
 
     def record_completion(self):
         self.requests_completed += 1
@@ -146,9 +164,18 @@ class ServingMetrics:
         self.page_fragmentation = page_fragmentation
         self.batch_occupancy = active_slots / max_slots if max_slots else 0.0
         self.queue_depth = queue_depth
+        step = self.decode_steps
+        self._record("Serving/queue_depth", queue_depth, step)
+        self._record("Serving/pages_in_use", pages_in_use, step)
+        self._record("Serving/page_fragmentation", page_fragmentation, step)
+        self._record("Serving/batch_occupancy", self.batch_occupancy, step)
+        if step_s > 0:
+            self._record("Serving/tokens_per_sec", tokens_this_step / step_s, step)
+        self._record("Serving/tokens_per_step", tokens_this_step, step)
         if proposed_tokens > 0:
             self.draft_proposed += proposed_tokens
             self.draft_accepted += accepted_tokens
+            self._record("Serving/accept_rate", accepted_tokens / proposed_tokens, step)
 
     def record_handoff(self, event):
         """One KV-handoff lifecycle event: 'export' (prefill side, pages
@@ -158,9 +185,15 @@ class ServingMetrics:
         reaper)."""
         attr = f"handoff_{event}" if event.endswith("ed") else f"handoff_{event}s"
         setattr(self, attr, getattr(self, attr, 0) + 1)
+        self._record(f"Serving/{attr}", getattr(self, attr), 1)
 
     def record_kv_pool_bytes(self, nbytes):
         self.kv_pool_bytes = int(nbytes)
+        self._record("Serving/kv_pool_bytes", int(nbytes), 1)
+
+    def _record(self, tag, value, step):
+        if self.monitor is not None:
+            self.monitor.record(tag, value, step)
 
     # -- reading --------------------------------------------------------
     def avg_ttft_s(self):
@@ -272,6 +305,10 @@ class ServingMetrics:
             help="live ServingMetrics.snapshot()")
         return registry
 
+    def close(self):
+        if self.monitor is not None:
+            self.monitor.flush()
+
 
 # rollout phases in escalation order; the phase gauge exports the index
 ROLLOUT_PHASES = ("idle", "staging", "canary", "promoting", "rolling_back",
@@ -286,7 +323,8 @@ class RolloutMetrics:
     describes this canary; fleet-lifetime counters (rollouts, rollbacks,
     commits) only grow. Exported under ``Rollout/*``."""
 
-    def __init__(self):
+    def __init__(self, monitor=None):
+        self.monitor = monitor
         self.phase = "idle"
         self.target_tag = None
         # lifetime
@@ -314,11 +352,14 @@ class RolloutMetrics:
         if phase not in ROLLOUT_PHASES:
             raise ValueError(f"unknown rollout phase {phase!r}")
         self.phase = phase
+        self._record("Rollout/phase", float(ROLLOUT_PHASES.index(phase)), self.rollouts_total)
 
     def record_shadow(self, matched):
         self.shadow_compared_total += 1
         if not matched:
             self.shadow_diff_total += 1
+        self._record("Rollout/shadow_diff_total", float(self.shadow_diff_total),
+                     self.shadow_compared_total)
 
     def record_canary_crash(self):
         self.canary_crashes += 1
@@ -326,9 +367,15 @@ class RolloutMetrics:
     def record_rollback(self, reason):
         self.rollbacks_total += 1
         self.last_rollback_reason = str(reason)
+        self._record("Rollout/rollbacks_total", float(self.rollbacks_total),
+                     self.rollouts_total)
 
     def record_commit(self):
         self.commits_total += 1
+
+    def _record(self, tag, value, step):
+        if self.monitor is not None:
+            self.monitor.record(tag, value, step)
 
     def shadow_diff_rate(self):
         if self.shadow_compared_total <= 0:

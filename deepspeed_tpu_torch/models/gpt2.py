@@ -18,8 +18,8 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
     DeepSpeedTransformerConfig,
     DeepSpeedTransformerLayer,
 )
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import REMAT_POLICIES
 
-REMAT_POLICIES = ("nothing", "dots")
 _LINEARS = ("qkv", "attn_out", "ff1", "ff2")
 _NORMS = ("ln_attn", "ln_ffn")
 

@@ -11,8 +11,9 @@ Honoured sections: ``optimizer`` (Adam, AdamW, Lamb, SGD), ``scheduler``
 (name and params), ``fp16`` (static or dynamic loss scaling) and
 ``bf16``, ``gradient_clipping``, ``zero_optimization`` (stages 0-3 and
 ``cpu_offload``, with the JAX package's checks of its keys) and
-``zero_allow_untested_optimizer``, ``activation_checkpointing``,
-``steps_per_print``, ``seed``, ``prescale_gradients``,
+``zero_allow_untested_optimizer``, ``activation_checkpointing`` (every
+key), ``tensorboard``, ``csv_monitor``, ``wall_clock_breakdown``,
+``memory_breakdown``, ``steps_per_print``, ``seed``, ``prescale_gradients``,
 ``gradient_predivide_factor``, ``checkpoint`` (tag validation and the
 storage keys of ``runtime/checkpoint/``), ``telemetry`` (the copied
 ``DeepSpeedTelemetryConfig``), ``serving``, ``fleet`` (the serving
@@ -278,6 +279,18 @@ from deepspeed_tpu_torch.runtime.constants import (
     SPARSE_VARIABLE_MODE,
     STEPS_PER_PRINT,
     STEPS_PER_PRINT_DEFAULT,
+    CSV_MONITOR,
+    MEMORY_BREAKDOWN,
+    MEMORY_BREAKDOWN_DEFAULT,
+    TENSORBOARD,
+    TENSORBOARD_ENABLED,
+    TENSORBOARD_ENABLED_DEFAULT,
+    TENSORBOARD_JOB_NAME,
+    TENSORBOARD_JOB_NAME_DEFAULT,
+    TENSORBOARD_OUTPUT_PATH,
+    TENSORBOARD_OUTPUT_PATH_DEFAULT,
+    WALL_CLOCK_BREAKDOWN,
+    WALL_CLOCK_BREAKDOWN_DEFAULT,
     TRAIN_BATCH_SIZE,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     TYPE,
@@ -367,6 +380,44 @@ def _section_enabled(param_dict, key):
     if isinstance(section, dict):
         return bool(section.get("enabled", True))
     return bool(section)
+
+
+def get_wall_clock_breakdown(param_dict):
+    return get_scalar_param(param_dict, WALL_CLOCK_BREAKDOWN, WALL_CLOCK_BREAKDOWN_DEFAULT)
+
+
+def get_memory_breakdown(param_dict):
+    return get_scalar_param(param_dict, MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT)
+
+
+def get_tensorboard_enabled(param_dict):
+    if TENSORBOARD in param_dict:
+        return get_scalar_param(param_dict[TENSORBOARD], TENSORBOARD_ENABLED,
+                                TENSORBOARD_ENABLED_DEFAULT)
+    return False
+
+
+def get_tensorboard_output_path(param_dict):
+    if get_tensorboard_enabled(param_dict):
+        return get_scalar_param(param_dict[TENSORBOARD], TENSORBOARD_OUTPUT_PATH,
+                                TENSORBOARD_OUTPUT_PATH_DEFAULT)
+    return TENSORBOARD_OUTPUT_PATH_DEFAULT
+
+
+def get_tensorboard_job_name(param_dict):
+    if get_tensorboard_enabled(param_dict):
+        return get_scalar_param(param_dict[TENSORBOARD], TENSORBOARD_JOB_NAME,
+                                TENSORBOARD_JOB_NAME_DEFAULT)
+    return TENSORBOARD_JOB_NAME_DEFAULT
+
+
+def get_csv_monitor(param_dict):
+    """The ``csv_monitor`` section: (enabled, output_path, job_name), with
+    the tensorboard section's defaults."""
+    sec = param_dict.get(CSV_MONITOR, {})
+    return (bool(sec.get("enabled", False)),
+            sec.get("output_path", TENSORBOARD_OUTPUT_PATH_DEFAULT),
+            sec.get("job_name", TENSORBOARD_JOB_NAME_DEFAULT))
 
 
 def get_fp16_enabled(param_dict):
@@ -1506,6 +1557,13 @@ class DeepSpeedConfig:
         self.steps_per_print = get_scalar_param(param_dict, STEPS_PER_PRINT,
                                                 STEPS_PER_PRINT_DEFAULT)
         self.seed = get_scalar_param(param_dict, SEED, SEED_DEFAULT)
+        self.wall_clock_breakdown = get_wall_clock_breakdown(param_dict)
+        self.memory_breakdown = get_memory_breakdown(param_dict)
+        self.tensorboard_enabled = get_tensorboard_enabled(param_dict)
+        self.tensorboard_output_path = get_tensorboard_output_path(param_dict)
+        self.tensorboard_job_name = get_tensorboard_job_name(param_dict)
+        (self.csv_monitor_enabled, self.csv_monitor_output_path,
+         self.csv_monitor_job_name) = get_csv_monitor(param_dict)
         self.prescale_gradients = get_scalar_param(param_dict, PRESCALE_GRADIENTS,
                                                    PRESCALE_GRADIENTS_DEFAULT)
         self.gradient_predivide_factor = get_scalar_param(
@@ -1634,8 +1692,7 @@ class DeepSpeedConfig:
 
     def _check_ported(self, param_dict):
         """Refuse, by name, every enabled section this slice does not run."""
-        todo = [f"activation_checkpointing.{k}"
-                for k in self.activation_checkpointing_config.unported]
+        todo = []
         if self.optimizer_name is not None and self.optimizer_name in DEEPSPEED_OPTIMIZERS \
                 and self.optimizer_name not in PORTED_OPTIMIZERS:
             todo.append(f"optimizer {self.optimizer_name}")

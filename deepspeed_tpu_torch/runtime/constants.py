@@ -52,6 +52,22 @@ GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
+
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+
+# the monitors: tensorboard, and csv_monitor with the same keys and defaults
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedTPUJobName"
+CSV_MONITOR = "csv_monitor"
 SEED = "seed"
 SEED_DEFAULT = 42
 
@@ -368,7 +384,7 @@ PARALLEL_REPLICATE_UNMATCHED = "replicate_unmatched"
 PARALLEL_REPLICATE_UNMATCHED_DEFAULT = True
 
 # sections and switches of the JAX config the port does not run yet: a
-# config that enables one is refused by name
-UNPORTED_SECTIONS = ("flops_profiler", "amp",
-                     "curriculum_learning", "tensorboard", "csv_monitor", "sentinel",
-                     "sparse_gradients", "wall_clock_breakdown", "memory_breakdown")
+# config that enables one is refused by name (flops_profiler and sentinel:
+# ROADMAP.md slice 9b; amp, curriculum_learning and sparse_gradients: 9c)
+UNPORTED_SECTIONS = ("flops_profiler", "amp", "curriculum_learning", "sentinel",
+                     "sparse_gradients")

@@ -23,9 +23,20 @@ Port of ``deepspeed_tpu/runtime/engine.py`` for the path
   under ``prescale_gradients``);
 - the shared update: global norm or clipping, then the optimizer on the
   masters, then the masters cast back into the module;
-- the ``activation_checkpointing`` section flips the model config's
-  ``checkpoint_activations`` (per-layer recompute) or, for a model
-  without that switch, recomputes the whole forward;
+- the ``activation_checkpointing`` section configures
+  ``checkpointing`` and flips the model config's
+  ``checkpoint_activations`` (per-layer recompute), with
+  ``cpu_checkpointing`` also its ``checkpoint_policy`` to
+  ``offload_dots`` (the saved matmul outputs in pinned host memory); a
+  model without that switch has its whole forward recomputed (under
+  ``offload_dots`` with ``cpu_checkpointing``);
+- the monitors (``tensorboard``, ``csv_monitor``, and the telemetry
+  registry when the ``telemetry`` block arms it): the JAX engine's
+  ``Train/Samples/*`` records a step, kept as device tensors and written
+  at every ``steps_per_print``-th step's flush and at ``close()``; under
+  ``wall_clock_breakdown`` the forward / backward / step microstep timers
+  (each waits for the card) are logged every ``steps_per_print`` steps,
+  with the card's allocated and peak memory under ``memory_breakdown``;
 - one explicit step ``torch.Generator`` seeded from the config ``seed``
   (default 42) hands every microbatch one integer dropout seed;
 - ``initialize`` starts the ``torch.distributed`` group from the
@@ -89,6 +100,8 @@ from deepspeed_tpu_torch.parallel import tp
 from deepspeed_tpu_torch.parallel.expert import MoELayer
 from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, create_mesh
 from deepspeed_tpu_torch.parallel.tp import local_part, whole_of
+from deepspeed_tpu_torch.monitor import monitor_from_config
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
     checkpoint_call,
 )
@@ -121,7 +134,7 @@ from deepspeed_tpu_torch.runtime.zero.pytree_optimizer import ZeroPytreeOptimize
 from deepspeed_tpu_torch.runtime.zero.sharded_optimizer import ZeroShardedOptimizer
 from deepspeed_tpu_torch.utils import distributed as dist
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
-from deepspeed_tpu_torch.utils.timer import ThroughputTimer
+from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from deepspeed_tpu_torch.version import __version__
 
 ROUTE_TRAIN = "train"
@@ -533,6 +546,7 @@ class DeepSpeedEngine:
 
         self._configure_activation_checkpointing()
 
+        self.timers = SynchronizedWallClockTimer(device=self.device)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(), num_workers=1,
             steps_per_output=self.steps_per_print(),
@@ -554,6 +568,13 @@ class DeepSpeedEngine:
         self.last_grad_norm = None
         self._last_overflow = False
         self._configure_telemetry()
+        # the monitors, after the telemetry block so that the registry's
+        # bridge rides along when it is armed; the step's mean loss is kept
+        # as a device tensor until a flush
+        self.monitor = monitor_from_config(self._config, self.global_rank)
+        self._last_loss = None
+        self._loss_sum = None
+        self._timer_prev = {}
         # both reach the engine through a weak proxy: the engine owns them,
         # and a reference cycle would keep a dropped engine's device memory
         # until the next garbage collection
@@ -653,6 +674,12 @@ class DeepSpeedEngine:
 
     def steps_per_print(self):
         return self._config.steps_per_print
+
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
+    def memory_breakdown(self):
+        return self._config.memory_breakdown
 
     def bfloat16_enabled(self):
         return self._config.bfloat16_enabled
@@ -910,13 +937,20 @@ class DeepSpeedEngine:
             tput_timer=self.tput_timer if route == ROUTE_TRAIN else None)
 
     def _configure_activation_checkpointing(self):
-        """With the section enabled, flip the model config's per-layer
-        switch in place (shared config objects are affected, as in the
-        JAX engine), or recompute the whole forward when the model has no
-        such switch."""
+        """Configure ``checkpointing`` from the config's section. With the
+        section enabled, flip the model config's per-layer switch in place
+        (shared config objects are affected, as in the JAX engine) and,
+        under ``cpu_checkpointing``, its ``checkpoint_policy`` to
+        ``offload_dots``; a model with no such switch has its whole
+        forward recomputed, under ``offload_dots`` with
+        ``cpu_checkpointing``."""
+        checkpointing.configure(self.mpu, deepspeed_config=self._config._param_dict)
         self._remat_module = False
-        if not self._config.activation_checkpointing_config.enabled:
+        self._remat_fallback_policy = None
+        ac_cfg = self._config.activation_checkpointing_config
+        if not ac_cfg.enabled:
             return
+        offload = bool(ac_cfg.cpu_checkpointing)
         mcfg = getattr(self.module, "config", None)
         if mcfg is not None and hasattr(mcfg, "checkpoint_activations"):
             if not mcfg.checkpoint_activations:
@@ -924,10 +958,21 @@ class DeepSpeedEngine:
                 log_dist("activation checkpointing: setting "
                          f"{type(mcfg).__name__}.checkpoint_activations=True in place "
                          "(shared config objects are affected)", ranks=[0])
+            if offload and not hasattr(mcfg, "checkpoint_policy"):
+                logger.warning(
+                    "cpu_checkpointing requested but "
+                    f"{type(mcfg).__name__} exposes no settable checkpoint_policy — "
+                    "activations stay on the device (per-layer recompute still active)")
+            elif offload:
+                mcfg.checkpoint_policy = "offload_dots"
+                log_dist("cpu_checkpointing: checkpoint_policy='offload_dots' — saved "
+                         "activations go to host memory (pinned)", ranks=[0])
         else:
             self._remat_module = True
+            self._remat_fallback_policy = "offload_dots" if offload else "nothing"
             log_dist("activation checkpointing: recomputing the whole forward "
-                     "(the model exposes no per-layer switch)", ranks=[0])
+                     "(the model exposes no per-layer switch)"
+                     + (" with host-offloaded saves" if offload else ""), ranks=[0])
 
     # ------------------------------------------------------------------
     # the step's pieces
@@ -958,7 +1003,8 @@ class DeepSpeedEngine:
                           pld_seed=int(torch.randint(0, 2**62, (1,),
                                                      generator=self._pld_gen)))
         if self._remat_module and torch.is_grad_enabled():
-            out = checkpoint_call(self.module, *batch, **kwargs)
+            out = checkpoint_call(self.module, *batch, policy=self._remat_fallback_policy,
+                                  **kwargs)
         else:
             out = self.module(*batch, **kwargs)
         loss = out[0] if isinstance(out, tuple) else out
@@ -1043,6 +1089,84 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
                      f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
 
+    def _monitor_step(self):
+        """Record the step's scalars, keyed by ``global_samples``:
+        ``Train/Samples/{train_loss,lr}``, ``loss_scale`` under fp16,
+        ``Train/comm_overlap_frac`` where the optimizer has
+        ``overlap_comm``, ``Train/offload_overlap_frac`` under
+        ZeRO-Offload, and the microstep timers under
+        ``wall_clock_breakdown``. Values may be device tensors: the
+        monitor reads them on the host only at its flush.
+        (``Train/Samples/model_tflops`` and ``mfu`` come with the FLOPS
+        profiler, ROADMAP.md slice 9b.)"""
+        if self.monitor is None:
+            return
+        samples = self.global_samples
+        if self._loss_sum is not None:
+            self.monitor.record("Train/Samples/train_loss",
+                                self._loss_sum / self.gradient_accumulation_steps(), samples)
+        self.monitor.record("Train/Samples/lr", self.get_lr()[0], samples)
+        if hasattr(self.optimizer, "overlap_comm"):
+            # of the B per-bucket reduces the backward emits, all but the
+            # last have backward compute left to hide under (0 without
+            # overlap: the one reduce hides under nothing)
+            frac = 0.0
+            if self.optimizer.overlap_comm:
+                b = len(self.optimizer.bucket_numels or ())
+                frac = (b - 1) / b if b > 0 else 0.0
+            self.monitor.record("Train/comm_overlap_frac", frac, samples)
+        offload_stats = getattr(self.optimizer, "last_offload_stats", None)
+        if offload_stats is not None:
+            # measured: the share of the offload stages' summed time hidden
+            # by their running side by side
+            self.monitor.record("Train/offload_overlap_frac", offload_stats["overlap_frac"],
+                                samples)
+        if self.fp16_enabled():
+            # a later step replaces the scaler's tensors and never writes them
+            self.monitor.record("Train/Samples/loss_scale", self.scaler_state.cur_scale,
+                                samples)
+        if self.wall_clock_breakdown():
+            # elapsed_ accumulates until timers.log() resets it every
+            # steps_per_print: record the step's delta
+            for name in ("forward_microstep", "backward_microstep"):
+                t = self.timers.timers.get(name)
+                if t is None or t.started_:
+                    continue
+                prev = self._timer_prev.get(name, 0.0)
+                delta = t.elapsed_ - prev if t.elapsed_ >= prev else t.elapsed_
+                self._timer_prev[name] = t.elapsed_
+                self.monitor.record(f"Train/Samples/{name}", delta * 1000.0, samples)
+
+    def _report_breakdown(self):
+        """Every ``steps_per_print`` steps: flush the monitor, and log the
+        microstep timers under ``wall_clock_breakdown`` (the card's memory
+        beside them under ``memory_breakdown``, alone without the
+        timers)."""
+        if self.global_steps % self.steps_per_print() != 0:
+            return
+        if self.monitor is not None:
+            self.monitor.flush()
+        if self.wall_clock_breakdown():
+            self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
+                            memory_breakdown=self.memory_breakdown())
+        elif self.memory_breakdown():
+            log_dist(f"step={self.global_steps} {self.timers.memory_usage()}", ranks=[0])
+
+    def _start_timers(self, name):
+        if self.wall_clock_breakdown():
+            self.timers(f"{name}_microstep").start()
+            self.timers(name).start(sync=False)
+
+    def _stop_timers(self, name):
+        if self.wall_clock_breakdown():
+            self.timers(name).stop(sync=False)
+            self.timers(f"{name}_microstep").stop()
+
+    def close(self):
+        """Flush and close the monitors (their files stay)."""
+        if self.monitor is not None:
+            self.monitor.close()
+
     def _optimizer_base_lr(self):
         return getattr(self.basic_optimizer, "lr", 1e-3)
 
@@ -1068,14 +1192,19 @@ class DeepSpeedEngine:
         """The loss of one microbatch. In training mode the loss carries
         the autograd graph for ``backward``; in eval mode it is computed
         without grad and deterministically."""
+        self._start_timers("forward")
         batch = self._batch(inputs)
         if not self.training:
             with torch.no_grad():
-                return self._loss(batch, deterministic=True)
-        with (self._tracer.span("train/forward_backward", cat="train",
-                                args={"step": self.global_steps})
-              if self._tracer.enabled else _NULL_SPAN):
-            return self._loss(batch)
+                loss = self._loss(batch, deterministic=True)
+        else:
+            with (self._tracer.span("train/forward_backward", cat="train",
+                                    args={"step": self.global_steps})
+                  if self._tracer.enabled else _NULL_SPAN):
+                loss = self._loss(batch)
+            self._last_loss = loss.detach()
+        self._stop_timers("forward")
+        return loss
 
     __call__ = forward
 
@@ -1083,9 +1212,17 @@ class DeepSpeedEngine:
         """Backpropagate ``loss`` (times the loss scale under fp16) and
         accumulate the gradients (times the accumulation factor) into the
         fp32 buffers."""
+        self._start_timers("backward")
         self._scaled(loss).backward()
         self._accumulate()
+        # the monitor's train_loss is the boundary step's mean microbatch
+        # loss (a device add, no wait for the card)
+        if self.monitor is not None and self._last_loss is not None:
+            self._loss_sum = (self._last_loss
+                              if self.micro_steps % self.gradient_accumulation_steps() == 0
+                              else self._loss_sum + self._last_loss)
         self.micro_steps += 1
+        self._stop_timers("backward")
         return loss
 
     def is_gradient_accumulation_boundary(self):
@@ -1093,13 +1230,19 @@ class DeepSpeedEngine:
 
     def step(self):
         """Apply the accumulated gradients at an accumulation boundary."""
-        if self.is_gradient_accumulation_boundary() and self.micro_steps > 0:
+        self._start_timers("step")
+        boundary = self.is_gradient_accumulation_boundary() and self.micro_steps > 0
+        if boundary:
             with (self._tracer.span("train/optimizer_step", cat="train",
                                     args=self._optimizer_step_args())
                   if self._tracer.enabled else _NULL_SPAN):
                 overflow = self._update()
             self._finish_step_bookkeeping(overflow)
+            self._monitor_step()
             self.tput_timer.stop(self.global_steps % self.steps_per_print() == 0)
+        self._stop_timers("step")
+        if boundary:
+            self._report_breakdown()
 
     def _optimizer_step_args(self):
         args = {"step": self.global_steps}
@@ -1124,12 +1267,18 @@ class DeepSpeedEngine:
                                 args={"step": self.global_steps, "gas": gas})
               if self._tracer.enabled else _NULL_SPAN):
             for batch in micro:
+                self._start_timers("forward")
                 loss = self._loss(batch)
+                self._stop_timers("forward")
+                self._start_timers("backward")
                 self._scaled(loss).backward()
                 self._accumulate()
+                self._stop_timers("backward")
                 losses.append(loss.detach())
             self.micro_steps += gas
+            self._start_timers("step")
             overflow = self._update()
+            self._stop_timers("step")
             if self._tracer.enabled:
                 # one child span a reduce (or offload) bucket: schedule
                 # markers with the bucket's id and size, as the JAX engine's
@@ -1139,9 +1288,14 @@ class DeepSpeedEngine:
                                                  "numel": n}):
                         pass
         loss = torch.stack(losses).mean()
+        self._last_loss = loss
+        if self.monitor is not None:
+            self._loss_sum = loss * gas
         self._finish_step_bookkeeping(overflow)
         report = self.global_steps % self.steps_per_print() == 0
         self.tput_timer.stop(report, sync=report)
+        self._monitor_step()
+        self._report_breakdown()
         return loss
 
     def train_batch(self, data_iter=None):
@@ -1337,6 +1491,8 @@ class DeepSpeedEngine:
             # the committed tag is the new rollback target; the replay
             # buffer restarts from here
             self.resilience.note_checkpoint(save_dir, tag)
+        if self.monitor is not None:
+            self.monitor.flush()
         return True
 
     def _ckpt_commit_barrier(self, tag):

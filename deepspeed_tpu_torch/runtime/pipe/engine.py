@@ -44,7 +44,16 @@ p % S). ``train_batch`` and ``eval_batch`` are the only entry points.
   at another stage count.
 - The ``resilience`` block runs ``train_batch`` under the supervisor;
   the step boundary runs the job-level hooks; the ``telemetry`` block
-  arms the JAX engine's spans and the per-stage gauges.
+  arms the JAX engine's spans.
+- The monitors (``tensorboard``, ``csv_monitor``, and the telemetry
+  registry's bridge when the block arms it) get the JAX engine's
+  ``Train/Samples/*`` and ``Train/Pipe/*`` records a step. They are host
+  numbers once the step has read its losses, so the monitor is flushed
+  every step: the registry's gauges are current after each step.
+- ``activation_checkpointing.cpu_checkpointing`` is accepted and changes
+  nothing: the JAX package applies it in its compiled executor only, and
+  the interpreter (the port's one executor) stores each stage's
+  activations either way.
 
 - Tensor parallelism and ZeRO inside the stages (``tensor_parallel``,
   ``mesh``, ``initialize(mpu=...)``, ``zero_optimization.stage`` 1-3):
@@ -72,6 +81,7 @@ import torch
 
 from deepspeed_tpu_torch import comm, telemetry
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
+from deepspeed_tpu_torch.monitor import monitor_from_config
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.ops.sgd import SGD
@@ -237,6 +247,13 @@ class PipelineEngine:
         me = weakref.proxy(self)
         self.resilience = ResilienceSupervisor.from_ds_config(self._config, me)
         self._cluster = ClusterHooks(me)
+        self.monitor = monitor_from_config(self._config, self.global_rank)
+
+        ac_cfg = self._config.activation_checkpointing_config
+        if ac_cfg.enabled and ac_cfg.cpu_checkpointing:
+            log_dist("pipeline cpu_checkpointing: the JAX package applies 'offload_dots' in "
+                     "its compiled executor only; the interpreter keeps each stage's "
+                     "activations as it does without it", ranks=[0])
 
         if self._config.prescale_gradients or self._config.gradient_predivide_factor != 1.0:
             logger.warning("prescale_gradients/gradient_predivide_factor are applied by the "
@@ -439,12 +456,22 @@ class PipelineEngine:
         self.agg_train_loss = float(np.mean(host_losses))
         self.global_steps += 1
         self.global_samples += self.micro_batch_size * self.micro_batches * self.dp_world_size
-        self._publish_gauges()
+        self._monitor_step()
         report = self.global_steps % self._config.steps_per_print == 0
         self.tput_timer.stop(report, sync=False)
         if report:
             log_dist(f"step={self.global_steps}, loss={self.agg_train_loss:.4f}, "
                      f"lr={self.get_lr()}", ranks=[0])
+            if self._config.wall_clock_breakdown:
+                # the interpreter runs the stages one after another, so the
+                # step's wall time counts work a deployment overlaps: report
+                # against the busiest rank's time stretched by the bubble
+                est = self._est_parallel_step_s()
+                if est > 0:
+                    sps = self.micro_batch_size * self.micro_batches * self.dp_world_size / est
+                    log_dist(f"wall_clock: train_batch {sps:.1f} samples/sec (bottleneck-"
+                             f"stage estimate; schedule bubble "
+                             f"{self._schedule_bubble_fraction():.3f})", ranks=[0])
         return self.agg_train_loss
 
     def _run_schedule(self, micro):
@@ -790,20 +817,34 @@ class PipelineEngine:
         bubble = self._schedule_bubble_fraction()
         return busiest if bubble >= 1.0 else busiest / (1.0 - bubble)
 
-    def _publish_gauges(self):
-        """With telemetry armed, the JAX engine's Train/Pipe scalars as
-        registry gauges."""
-        if not self._tracer.enabled:
+    def _monitor_step(self):
+        """The JAX engine's records of a step, keyed by ``global_samples``:
+        ``Train/Samples/{train_loss,lr}`` (and ``loss_scale`` under fp16),
+        each stage's time of this step, each physical rank's under
+        interleaving, the schedule's bubble and the estimated parallel
+        step; then a flush."""
+        if self.monitor is None:
             return
-        reg = telemetry.get_registry()
+        samples = self.global_samples
+        record = self.monitor.record
+        record("Train/Samples/train_loss", self.agg_train_loss, samples)
+        record("Train/Samples/lr", self.get_lr()[0], samples)
+        if self._fp16:
+            record("Train/Samples/loss_scale", self.scaler_state.cur_scale, samples)
         for s, ms in enumerate(self.stage_time_ms()):
-            reg.gauge(f"Train/Pipe/stage{s}_time_ms").set(ms)
+            record(f"Train/Pipe/stage{s}_time_ms", ms, samples)
         if self.num_model_chunks > 1:
             for r, wall_s in enumerate(self._rank_wall_s()):
-                reg.gauge(f"Train/Pipe/rank{r}_time_ms").set(wall_s * 1000.0)
-        reg.gauge("Train/Pipe/bubble_frac").set(self._schedule_bubble_fraction())
-        reg.gauge("Train/Pipe/est_parallel_step_ms").set(self._est_parallel_step_s() * 1000.0)
-        reg.gauge("Train/Samples/train_loss").set(self.agg_train_loss)
+                record(f"Train/Pipe/rank{r}_time_ms", wall_s * 1000.0, samples)
+        record("Train/Pipe/bubble_frac", self._schedule_bubble_fraction(), samples)
+        record("Train/Pipe/est_parallel_step_ms", self._est_parallel_step_s() * 1000.0,
+               samples)
+        self.monitor.flush()
+
+    def close(self):
+        """Flush and close the monitors (their files stay)."""
+        if self.monitor is not None:
+            self.monitor.close()
 
     # ------------------------------------------------------------------
     # engine-API parity

@@ -284,22 +284,43 @@ def test_config_errors_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("section", [
-    {"csv_monitor": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
-    {"tensorboard": {"enabled": True, "output_path": "runs"}},
-    {"csv_monitor": {"enabled": True, "job_name": "j"}},
-    {"sentinel": {"enabled": True}}, {"memory_breakdown": True},
+    {"sentinel": {"enabled": True}},
     {"flops_profiler": {"enabled": True, "profile_step": 2}},
     {"sentinel": {"enabled": True, "max_recompiles": 2}},
     {"flops_profiler": {"enabled": True}},
-    {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
-    {"activation_checkpointing": {"enabled": True, "partition_activations": True}},
-    {"amp": {"enabled": True}}, {"wall_clock_breakdown": True},
-    {"tensorboard": {"enabled": True}}, {"sparse_gradients": True},
+    {"amp": {"enabled": True}}, {"sparse_gradients": True},
 ])
 def test_config_refuses_sections_not_ported(section):
     with pytest.raises(NotImplementedError, match="not ported"):
         tconfig.DeepSpeedConfig({"train_batch_size": 4, **section}, world_size=1)
+
+
+_MONITOR_FIELDS = ("wall_clock_breakdown", "memory_breakdown", "tensorboard_enabled",
+                   "tensorboard_output_path", "tensorboard_job_name", "csv_monitor_enabled",
+                   "csv_monitor_output_path", "csv_monitor_job_name")
+
+
+@pytest.mark.parametrize("section", [
+    {"csv_monitor": {"enabled": True}},
+    {"tensorboard": {"enabled": True, "output_path": "runs"}},
+    {"csv_monitor": {"enabled": True, "job_name": "j"}},
+    {"memory_breakdown": True},
+    {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
+    {"activation_checkpointing": {"enabled": True, "partition_activations": True}},
+    {"wall_clock_breakdown": True},
+    {"tensorboard": {"enabled": True}},
+])
+def test_config_monitor_and_checkpointing_sections_equal_jax(section):
+    """The sections ported with the monitors and activation checkpointing
+    parse to the JAX config's fields."""
+    cfg = {"train_batch_size": 4, **section}
+    want = jconfig.DeepSpeedConfig(dict(cfg), world_size=1)
+    got = tconfig.DeepSpeedConfig(dict(cfg), world_size=1)
+    for key in _MONITOR_FIELDS:
+        assert getattr(got, key) == getattr(want, key), key
+    assert vars(got.activation_checkpointing_config) == \
+        vars(want.activation_checkpointing_config)
 
 
 @pytest.mark.parametrize("section", [
