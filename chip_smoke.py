@@ -306,10 +306,38 @@ prints no result line):
    64, 128, 192, 256, 4 CSV rows a tag, the losses as returned; the same
    with ``wall_clock_breakdown`` records the microstep timers; step ms
    with the monitors armed and disarmed.
+19. (``profile``) the FLOPS profiler and the sentinels: a. at BERT-large
+   width, 2 layers, bf16, 64 x 128, the FLOPs of one forward and of one
+   forward plus backward under ``FlopCounterMode`` with the flash kernels
+   (each reports its plain version's count) equal, as integers, to the
+   same counts with the plain versions swapped in, and the forward equal
+   to its formula; b. phase 6's bf16 Adam run (24 layers, 64 x 128) with
+   ``flops_profiler`` at step 3 against the same run unprofiled, 5 steps
+   each through ``train_batch`` under deterministic algorithms: losses
+   bit for bit, the report's head lines, the step's FLOPs, model TFLOP/s
+   and MFU against 989, the profiled window's ms against every step's
+   ms, the count pass's host ms; c. GPT-2 XL at 6 of 48 layers, bf16,
+   phase 3's engine and traffic with ``jax_sentinels`` (a budget of 8,
+   one prefill a prompt bucket; the transfer guard on): tokens equal to
+   the unguarded engine's, each sentinel's program count, a second pass
+   adding none, one sanctioned host read (``serving/step_read``) in a
+   guarded steady-state decode step, a planted ``.item()`` in one
+   raising, the host cost of recording programs and of the read
+   (report only), and one decode step's FLOPs through ``get_model_profile`` on the
+   decode and band kernels equal to their plain versions'; d. what
+   ``set_sync_debug_mode("error")`` flags, call by call; bf16
+   ``train_step`` at 2 layers under the guard with no sanctioned host
+   read, then a planted sync;
+   ZeRO-2 + offload streamed at 2 layers under the guard against
+   unguarded (losses and masters bit for bit, NCCL at world 1); a planted
+   sync on the main thread while a worker holds an offload window.
+
+Every phase prints its seconds and the bytes it left allocated on the
+card, before and after a garbage collection.
 
 ``--phases`` runs a subset (kernels, serve, oracle, flash, train, grad,
 zero, ckpt, resil, pld, serve6, fleet, sparse, pipe, parallel, serve_tp,
-remat)
+remat, profile)
 while a kernel is being worked on; such a run prints no result line.
 
 The line before the last is the kernels' JSON, with the card's name and
@@ -5717,9 +5745,435 @@ def phase_remat():
                 seconds=dict(a=t1 - t0, b=t2 - t1, c=t3 - t2))
 
 
+# phase 19: the FLOPS profiler and the sentinels
+PROFILE_STEP = 3          # the profiled step of (b), as global_steps counts it
+PROFILE_STEPS = 5
+SENTINEL_LAYERS = 6       # GPT-2 XL depth of (c), phase 12 bf16's
+SENTINEL_BUDGET = 8       # programs a class may run: one prefill a prompt bucket
+
+
+def _bert_counts(model, batch, seed):
+    """(forward FLOPs, forward + backward FLOPs) of one microbatch under the
+    counting mode."""
+    from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+
+    prof = FlopsProfiler()
+    fwd = prof.analyze(lambda: model(*batch, dropout_seed=seed))
+    both = prof.count_step(lambda: model(*batch, dropout_seed=seed),
+                           lambda loss: loss.backward(), params=model)
+    model.zero_grad(set_to_none=True)
+    return fwd, both
+
+
+def _bert_formula(cfg, tokens, seq, layers):
+    """The forward's matmul FLOPs from the shapes: a layer's four projections
+    (24 T h^2) and its attention's two products (4 T S h), the pooler, the
+    MLM transform and its decoder over every token, the NSP head."""
+    h, v, b = cfg.hidden_size, cfg.vocab_size, tokens // seq
+    return (layers * (24 * tokens * h * h + 4 * tokens * seq * h)
+            + 2 * b * h * h + 2 * tokens * h * h + 2 * tokens * h * v + 2 * b * h * 2)
+
+
+def _profile_counts():
+    """(a) the kernels' FLOP counts against their plain versions', at
+    BERT-large width, 2 layers, bf16, 64 x 128."""
+    import deepspeed_tpu_torch as dt
+
+    cfg = dt.BertConfig.bert_large(num_hidden_layers=2)
+    model = dt.init_bert(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    batch = _bert_batch(cfg, FB, FS, seed=2)
+    before = dt.kernels.launch_counts()
+    kern = _bert_counts(model, batch, 11)
+    after = dt.kernels.launch_counts()
+    with _PlainAttention():
+        plain = _bert_counts(model, batch, 11)
+    launched = {k: after[k] - before[k] for k in FLASH_KERNELS}
+    del model
+    torch.cuda.empty_cache()
+    return dict(model="bert_large width, 2 layers, bf16, 64 x 128, dropout 0.1",
+                fwd=kern[0], fwd_bwd=kern[1], plain_fwd=plain[0], plain_fwd_bwd=plain[1],
+                fwd_formula=_bert_formula(cfg, FB * FS, FS, 2),
+                launches=launched)
+
+
+def _profile_engine():
+    """(b) phase 6's bf16 Adam run with the FLOPS profiler at step 3 against
+    the same run unprofiled, 5 steps each through ``train_batch``, under
+    deterministic algorithms: the losses bit for bit; the report, FLOPs,
+    model TFLOP/s and MFU; the profiled window against the other steps."""
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, extra in (("plain", None), ("profiled", {"flops_profiler": {
+                "enabled": True, "profile_step": PROFILE_STEP, "detailed": False}})):
+            engine, batch = _zero_engine(extra=extra, stage=0)
+            losses, step_ms = [], []
+            for _ in range(PROFILE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(engine.train_batch(iter([batch])))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            out[name] = dict(losses=losses, step_ms=step_ms,
+                             fused=engine._can_fuse_train_step())
+            if extra is not None:
+                prof = dict(engine.last_profile)
+                head = [ln for ln in prof.pop("report").splitlines()
+                        if ln.startswith(("Profile step", "Params", "FLOPs", "MACs",
+                                          "Step latency", "Achieved", "Top "))]
+                out[name].update(profile=prof, report_head=head,
+                                 window_ms=1e3 * prof["duration_s"],
+                                 count_pass_host_ms=1e3 * prof["count_s"])
+            _free(engine)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the step as phase 6 runs it, under the default algorithms: profiled at
+    # its second step
+    engine, batch = _zero_engine(extra={"flops_profiler": {
+        "enabled": True, "profile_step": 1, "detailed": False}}, stage=0)
+    for _ in range(2):
+        engine.train_batch(iter([batch]))
+    prof = dict(engine.last_profile)
+    prof.pop("report")
+    out["default_algorithms"] = dict(profile=prof, window_ms=1e3 * prof["duration_s"])
+    _free(engine)
+    return out
+
+
+def _serve_sentinels():
+    """(c) GPT-2 XL at 6 of 48 layers, bf16, phase 3's traffic, with the
+    sentinels armed and the transfer guard on, against the same engine
+    unguarded; the program counts, a second pass, a planted sync."""
+    from deepspeed_tpu_torch import GPT2Config, ServingConfig, ServingEngine, init_gpt2
+    from deepspeed_tpu_torch import kernels
+    from deepspeed_tpu_torch.inference.serving import engine as serving
+    from deepspeed_tpu_torch.inference.serving.scheduler import default_buckets
+    from deepspeed_tpu_torch.profiling import sentinels
+    from deepspeed_tpu_torch.profiling.config import DeepSpeedSentinelConfig
+    from deepspeed_tpu_torch.profiling.flops_profiler import get_model_profile
+
+    cfg = GPT2Config.gpt2_xl(num_hidden_layers=SENTINEL_LAYERS)
+    model = init_gpt2(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    largest = default_buckets(cfg.max_position_embeddings - 1)[-1]
+    scfg = ServingConfig(max_slots=B, max_seq_len=cfg.max_position_embeddings,
+                         kv_cache_dtype="bf16",
+                         attention_impl={"default": "pallas_decode", largest: "pallas_sparse"})
+    block = {"jax_sentinels": {"enabled": True, "compile_budget": SENTINEL_BUDGET,
+                               "transfer_guard": True}}
+    guarded = ServingEngine(model, cfg, scfg, device="cuda",
+                            sentinel_config=DeepSpeedSentinelConfig(block))
+
+    def programs():
+        """Per class: the programs new since the sentinel was armed (an
+        earlier phase at the same shapes leaves none new) and the class's
+        programs in the process."""
+        sents = {name: getattr(guarded, name) for name in
+                 ("decode_sentinel", "decode_window_sentinel", "decode_kernel_sentinel")}
+        sents.update({f"prefill {impl}": s for impl, s in guarded.prefill_sentinels.items()})
+        return {name: dict(new=s.compiles, total=s._cache_size())
+                for name, s in sents.items() if s is not None}
+
+    kernels.reset_launch_counts()
+    outs, impls, first = _drive(guarded)
+    launches = {k: kernels.launch_counts()[k] for k in SERVING_KERNELS}
+    after_first = programs()
+    outs2, _, second = _drive(guarded)
+    after_second = programs()
+    plain = ServingEngine(model, cfg, scfg, device="cuda")
+    want, _, _ = _drive(plain)
+    del plain
+    # the sanctioned host reads of one guarded steady-state decode step
+    # (the guard cannot see an event wait: the count pins the reads)
+    for p in _prompts()[:2]:
+        guarded.submit(p, max_new_tokens=NEW_TOKENS)
+    for _ in range(16):
+        stats = guarded.step()
+        if stats["decoded"] == 2 and not (stats["admitted"] or stats["prefill_chunks"]):
+            break
+    sentinels.reset_transfer_counts()
+    stats = guarded.step()
+    step_reads = dict(decoded=stats["decoded"], transfers=sentinels.transfer_counts())
+    # a planted sync inside the guarded region: a decode step whose
+    # attention reads a device value on the host
+    real = kernels.decode_attend
+
+    def planted(q, *a, **kw):
+        q.float().sum().item()
+        return real(q, *a, **kw)
+
+    serving.kernels.decode_attend = planted
+    try:
+        guarded.step()
+        planted_raised = None
+    except RuntimeError as e:
+        planted_raised = str(e).splitlines()[0]
+    finally:
+        serving.kernels.decode_attend = real
+    guarded.drain()
+    # rows 4 and 5 of the kernel table: a decode step's FLOPs through
+    # get_model_profile, on the kernels and on their plain versions
+    pool = guarded.pool
+    tables = torch.as_tensor(pool.page_tables, dtype=torch.int32, device="cuda")
+    tokens = torch.zeros(B, dtype=torch.long, device="cuda")
+    positions = torch.full((B,), 700, dtype=torch.long, device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    nh, qmode, dtype = guarded.local_heads, guarded._qmode, pool.compute_dtype
+    step_flops = {}
+    for name, step in (("decode_attention", serving._decode_step_kernel),
+                       ("sparse_attention", serving._decode_step_window)):
+        run = lambda: step(model, pool, tables, tokens, positions, active, nh, qmode, dtype)
+        kern = get_model_profile(run, print_profile=False, as_string=False)[0]
+        real_band = kernels.band_attend
+        kernels.decode_attend = lambda q, pk, pv, t, qp, *, page_tokens, dtype, k_scale=None, \
+            v_scale=None, prefill=False: kernels.decode_attention._decode_attend_torch(
+                q.contiguous(), pk, pv, t.to(torch.int32).contiguous(),
+                qp.to(torch.int32).contiguous(), page_tokens, dtype, k_scale, v_scale)
+        kernels.band_attend = lambda q, kw, vw, ks, vs, pos, base, *, dtype: \
+            kernels.sparse_attention._band_attend_torch(
+                q.contiguous(), kw, vw, ks, vs, pos.to(torch.int32), base.to(torch.int32), dtype)
+        try:
+            plain_flops = get_model_profile(run, print_profile=False, as_string=False)[0]
+        finally:
+            kernels.decode_attend, kernels.band_attend = real, real_band
+        step_flops[name] = dict(kernels=kern, plain=plain_flops)
+    record_us = _program_record_us(
+        (model, pool, tables, tokens, positions, active, nh, qmode, dtype))
+    read_us = _step_read_us(tokens)
+    del guarded, model
+    torch.cuda.empty_cache()
+    return dict(model=f"gpt2_xl bf16 (seed 0), {SENTINEL_LAYERS} of 48 layers, kv bf16, "
+                      f"{B} slots", budget=SENTINEL_BUDGET, impls=impls,
+                tokens_equal=outs == want, second_pass_equal=outs2 == want,
+                programs_first_pass=after_first, programs_second_pass=after_second,
+                launches=launches, planted_sync_raised=planted_raised,
+                decode_step_reads=step_reads, program_record_us=record_us,
+                step_read_us=read_us,
+                decode_step_flops=step_flops,
+                decode_step_ms=dict(first=first["decode_step_ms"],
+                                    second=second["decode_step_ms"]))
+
+
+def _program_record_us(args, calls=2000):
+    """Host microseconds that ``records_programs`` adds to one call of a
+    decode step, with the step's own arguments: a recorded no-op of the
+    step's signature against the same no-op unrecorded."""
+    from deepspeed_tpu_torch.profiling.sentinels import records_programs
+
+    def step(model, pool, page_tables, tokens, positions, active, n_heads, qmode, dtype):
+        return None
+
+    recorded = records_programs(step)
+    times = []
+    for fn in (step, recorded, step, recorded):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        times.append(time.perf_counter() - t0)
+    return 1e6 * (times[1] + times[3] - times[0] - times[2]) / (2 * calls)
+
+
+def _step_read_us(tokens, calls=500):
+    """Host microseconds of a decode step's token read, behind one small
+    kernel each time: the sanctioned ``device_get`` against the blocking
+    ``.cpu()`` it replaced."""
+    from deepspeed_tpu_torch.profiling.sentinels import device_get
+    from deepspeed_tpu_torch.inference.serving.engine import _STEP_READ
+
+    reads = {"device_get": lambda t: device_get(t, _STEP_READ), "cpu": lambda t: t.cpu()}
+    times = dict.fromkeys(reads, 0.0)
+    for _ in range(2):
+        for name, read in reads.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                read(tokens + 1)
+            times[name] += time.perf_counter() - t0
+    return {name: 1e6 * t / (2 * calls) for name, t in times.items()}
+
+
+def _sync_flags():
+    """What ``set_sync_debug_mode("error")`` flags on this card, a call
+    at a time (the transfer guard's windows are designed from it)."""
+    x = torch.randn(1 << 16, device="cuda")
+    pinned = torch.empty(1 << 16, pin_memory=True)
+    pageable = torch.empty(1 << 16)
+    ev = torch.cuda.Event()
+    ev.record()
+    calls = {
+        "pinned D2H non_blocking": lambda: pinned.copy_(x, non_blocking=True),
+        "pageable D2H non_blocking": lambda: pageable.copy_(x, non_blocking=True),
+        "pinned H2D non_blocking": lambda: x.copy_(pinned, non_blocking=True),
+        "pageable H2D blocking": lambda: x.copy_(pageable),
+        "Event.synchronize": lambda: ev.synchronize(),
+        "Event.query": lambda: ev.query(),
+        "Stream.wait_event": lambda: torch.cuda.current_stream().wait_event(ev),
+        "Stream.synchronize": lambda: torch.cuda.current_stream().synchronize(),
+        "torch.cuda.synchronize": lambda: torch.cuda.synchronize(),
+        ".item()": lambda: x[0].item(),
+        ".cpu()": lambda: x[:4].cpu(),
+        "nonzero": lambda: (x > 0).nonzero(),
+    }
+    flags = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            flags[name] = "passes"
+        except RuntimeError:
+            flags[name] = "raises"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return flags
+
+
+def _train_sentinels():
+    """(d) bf16 train_step at 2 layers under the guard, then a planted sync;
+    ZeRO-2 + offload streamed at 2 layers under the guard against
+    unguarded (masters bit for bit, deterministic algorithms); a planted
+    sync on the main thread while an offload worker holds its window."""
+    import tempfile
+    import threading
+
+    from deepspeed_tpu_torch.profiling import allowed_transfer, sentinels, transfer_free
+    from deepspeed_tpu_torch.runtime.zero.sharded_optimizer import OFFLOAD_D2H
+
+    guard = {"jax_sentinels": {"enabled": True, "transfer_guard": True}}
+    res = {"sync_flags": _sync_flags()}
+    engine, batch = _zero_engine(extra=guard, layers=2, stage=0)
+    losses = [engine.train_step([batch]) for _ in range(3)]
+    # bf16 makes no sanctioned read either: the guard cannot see an event
+    # wait, so the count pins it
+    sentinels.reset_transfer_counts()
+    engine.train_step([batch])
+    res["train_step_transfers"] = sentinels.transfer_counts()
+    losses = [float(x) for x in losses]
+    hook = engine.module.bert.pooler.register_forward_hook(
+        lambda m, i, o: o.float().sum().item())
+    try:
+        engine.train_step([batch])
+        res["train_step_planted"] = None
+    except RuntimeError as e:
+        res["train_step_planted"] = str(e).splitlines()[0]
+    finally:
+        hook.remove()
+    res["train_step_losses"] = losses
+    res["train_step_programs"] = engine._train_step_sentinel.compiles
+    _free(engine)
+    zero = dict(stage=2, cpu_offload=True, offload_stream_buckets=OFFLOAD_BUCKETS)
+    masters = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, extra in (("plain", None), ("guarded", guard)):
+                engine, batch = _zero_engine(extra=extra, layers=2, **zero)
+                res[f"offload_{name}_losses"] = [float(engine.train_step([batch]))
+                                                 for _ in range(3)]
+                masters[name] = engine.master_params()
+                _free(engine)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.distributed.destroy_process_group()
+    res["offload_masters_equal"] = all(torch.equal(a, b) for a, b in
+                                       zip(masters["plain"].values(),
+                                           masters["guarded"].values()))
+    # the mode is one setting for the process: a worker's window must not
+    # let the main thread's implicit sync through
+    held, release = threading.Event(), threading.Event()
+
+    def worker():
+        with allowed_transfer(OFFLOAD_D2H):
+            held.set()
+            release.wait(30)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    held.wait(30)
+    x = torch.ones(4, device="cuda")
+    try:
+        with transfer_free():
+            x.sum().item()
+        res["main_thread_planted"] = None
+    except RuntimeError as e:
+        res["main_thread_planted"] = str(e).splitlines()[0]
+    finally:
+        release.set()
+        t.join()
+    return res
+
+
+def phase_profile():
+    """Phase 19: (a) the kernels' FLOP counts, (b) the profiler in the
+    training engine, (c) the sentinels in serving, (d) in training."""
+    stamps = [time.perf_counter()]
+    counts = _profile_counts()
+    stamps.append(time.perf_counter())
+    engine = _profile_engine()
+    stamps.append(time.perf_counter())
+    serve = _serve_sentinels()
+    stamps.append(time.perf_counter())
+    train = _train_sentinels()
+    stamps.append(time.perf_counter())
+    failures = []
+    if (counts["fwd"], counts["fwd_bwd"]) != (counts["plain_fwd"], counts["plain_fwd_bwd"]):
+        failures.append(f"(a) kernel counts {counts['fwd']}/{counts['fwd_bwd']} != plain "
+                        f"{counts['plain_fwd']}/{counts['plain_fwd_bwd']}")
+    if counts["fwd"] != counts["fwd_formula"]:
+        failures.append(f"(a) forward {counts['fwd']} != formula {counts['fwd_formula']}")
+    if min(counts["launches"].values()) <= 0:
+        failures.append(f"(a) a flash kernel did not launch in the count: {counts['launches']}")
+    prof = engine["profiled"]
+    if prof["losses"] != engine["plain"]["losses"]:
+        failures.append(f"(b) profiled losses {prof['losses']} != {engine['plain']['losses']}")
+    if prof["fused"] or not engine["plain"]["fused"]:
+        failures.append("(b) train_step fused with an armed profiler")
+    if not (prof["profile"]["flops"] > 0 and prof["profile"]["model_tflops"]
+            and prof["profile"]["mfu"]):
+        failures.append(f"(b) no model TFLOP/s or MFU: {prof['profile']}")
+    if not prof["report_head"]:
+        failures.append("(b) no report printed")
+    if not (serve["tokens_equal"] and serve["second_pass_equal"]):
+        failures.append("(c) guarded tokens differ from the unguarded run's")
+    if serve["programs_first_pass"] != serve["programs_second_pass"]:
+        failures.append(f"(c) the second pass added programs: {serve['programs_first_pass']} "
+                        f"-> {serve['programs_second_pass']}")
+    ran = {"decode_kernel_sentinel", "decode_window_sentinel", "prefill pallas_decode",
+           "prefill pallas_sparse"}
+    if any(serve["programs_first_pass"][name]["total"] < 1 for name in ran):
+        failures.append(f"(c) a class that ran recorded no program: "
+                        f"{serve['programs_first_pass']}")
+    if min(serve["launches"].values()) <= 0:
+        failures.append(f"(c) a serving kernel did not launch: {serve['launches']}")
+    if not serve["planted_sync_raised"]:
+        failures.append("(c) the planted sync in a guarded decode step did not raise")
+    if serve["decode_step_reads"] != dict(decoded=2, transfers={"serving/step_read": 1}):
+        failures.append(f"(c) a guarded decode step's reads: {serve['decode_step_reads']}, "
+                        "want one serving/step_read")
+    for name, f in serve["decode_step_flops"].items():
+        if f["kernels"] != f["plain"] or f["kernels"] <= 0:
+            failures.append(f"(c) {name} decode step FLOPs {f}")
+    if not all(np.isfinite(train["train_step_losses"])):
+        failures.append(f"(d) guarded train_step losses {train['train_step_losses']}")
+    if train["train_step_transfers"]:
+        failures.append(f"(d) guarded bf16 train_step read {train['train_step_transfers']}")
+    for key in ("train_step_planted", "main_thread_planted"):
+        if not train[key]:
+            failures.append(f"(d) {key}: the planted sync did not raise")
+    if not train["offload_masters_equal"] or \
+            train["offload_plain_losses"] != train["offload_guarded_losses"]:
+        failures.append("(d) guarded offload differs from unguarded")
+    res = dict(counts=counts, engine=engine, serve=serve, train=train, failures=failures,
+               seconds=dict(zip("abcd", np.diff(stamps).tolist())))
+    if failures:
+        _report("profile_failed", res)
+        raise RuntimeError("profile: " + "; ".join(failures))
+    return res
+
+
 PHASES = ("kernels", "serve", "oracle", "flash", "train", "grad", "zero", "ckpt", "resil",
           "pld", "serve6", "fleet", "sparse", "pipe", "parallel", "serve_tp",
-          "remat")
+          "remat", "profile")
 
 
 def _report(tag, result):
@@ -5735,7 +6189,15 @@ def _phase(name, fn, *args):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     result = fn(*args)
-    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    seconds = time.perf_counter() - t0
+    # what the phase left allocated on the card (its result included), and
+    # what a collection frees of it: memory that outlives its phase shows
+    # here, and in a later phase's peaks
+    left = torch.cuda.memory_allocated()
+    gc.collect()
+    print(f"phase {name}: {seconds:.1f} s", flush=True)
+    print(f"phase {name}: memory_allocated {left} bytes at its end, "
+          f"{torch.cuda.memory_allocated()} after gc.collect()", flush=True)
     return result
 
 
@@ -5940,6 +6402,8 @@ def main():
         serve_tp = _report("serve_tp", _phase("serve_tp", phase_serve_tp, timer))
     if "remat" in phases:
         remat = _report("remat", _phase("remat", phase_remat))
+    if "profile" in phases:
+        profile = _report("profile", _phase("profile", phase_profile))
     if phases != set(PHASES):
         print(card_info())
         print(f"partial run ({sorted(phases)}): no result line")
@@ -6080,7 +6544,7 @@ def main():
                            grad_oracle=grad_oracle, zero=zero, ckpt=ckpt, resil=resil,
                            pld=pld, serve6=serve6, fleet=fleet, sparse=sparse, pipe=pipe,
                            parallel=parallel, serve_tp=serve_tp, remat=remat,
-                           torch=torch.__version__,
+                           profile=profile, torch=torch.__version__,
                            cuda=torch.version.cuda), f,
                       indent=1)
     print(card)                  # name and power limit, as nvidia-smi gives them

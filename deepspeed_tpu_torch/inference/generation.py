@@ -37,6 +37,7 @@ before adding its bias once. Callers pass the rank's head count.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,6 +56,11 @@ from deepspeed_tpu_torch.kernels.sparse_attention import (
 )
 from deepspeed_tpu_torch.models.gpt2 import resolve_device
 from deepspeed_tpu_torch.parallel.tp import RowParallelLinear
+from deepspeed_tpu_torch.profiling.sentinels import (
+    device_put,
+    records_programs,
+    register_allowed_transfer,
+)
 
 ATTENTION_IMPLS = ("dense", "flash", "sparse_xla",
                    "pallas_decode", "pallas_sparse")
@@ -64,6 +70,8 @@ ATTENTION_IMPLS = ("dense", "flash", "sparse_xla",
 DEFAULT_PAGE_TOKENS = 128
 
 _NEG = -1e30
+# a chunk's write plan (host offsets) on its way to the card
+_CHUNK_ROWS = register_allowed_transfer("serving/chunk_rows")
 
 
 def check_impl(attn_impl):
@@ -165,7 +173,9 @@ def _decode_one(layer, h, cache_k, cache_v, pos, nh):
     _write_rows(cache_k, cache_v, k, v, pos)
     hd = q.shape[-1]
     S = cache_k.shape[2]
-    scale = (1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype))).to(h.device)
+    # a CPU 0-dim scale rides into the product as a scalar: no copy to the
+    # card, so a guarded decode step (transfer_free) waits on nothing
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype))
     scores = torch.matmul(q[:, :, None], cache_k.transpose(-1, -2))[:, :, 0] * scale
     valid = torch.arange(S, device=h.device)[None, :] <= pos[:, None]   # [B, S]
     scores = torch.where(valid[:, None], scores, _NEG)
@@ -307,7 +317,7 @@ def _dense_chunk_attend(q, cache_k, cache_v, qpos):
     caches [B, nh, S, hd]."""
     S = cache_k.shape[2]
     hd = q.shape[-1]
-    scale = (1.0 / torch.sqrt(torch.tensor(float(hd), dtype=q.dtype))).to(q.device)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=q.dtype))   # a CPU scalar
     scores = torch.matmul(q.transpose(1, 2), cache_k.transpose(-1, -2)) * scale
     valid = torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None]
     scores = torch.where(valid[:, None], scores, _NEG)
@@ -326,7 +336,7 @@ def _chunk_rows(starts, C, S, device):
         lanes += [b] * n
         cols += range(int(s), int(s) + n)
         idx += range(n)
-    as_t = lambda x: torch.tensor(x, dtype=torch.long, device=device)
+    as_t = lambda x: device_put(np.asarray(x, np.int64), device, _CHUNK_ROWS)
     return as_t(lanes), as_t(cols), as_t(idx)
 
 
@@ -470,6 +480,7 @@ def filter_logits(logits, top_k=0, top_p=1.0):
     return torch.where(keep, logits, _NEG)
 
 
+@records_programs(traced=("prompt_ids",))
 def generate(model, config, prompt_ids, max_new_tokens, temperature=0.0,
              rng=None, top_k=0, top_p=1.0, attn_impl="dense",
              kv_page_tokens=None, attention_kernel=None, kernel_interpret=None,

@@ -81,16 +81,26 @@ A monitor (``monitor=``, or the ds_config's monitors through
 ``from_config``) gets the JAX engine's ``Serving/*`` records; on a mesh
 only rank 0 records. ``close()`` flushes it.
 
-Left out (ROADMAP.md): the compile sentinels; on a mesh,
-the KV handoff, fault injection, the memory-pressure guard and int8
-weights.
+Sentinels (``sentinel_config``, the ``jax_sentinels`` block through
+``from_config``): one ``CompileSentinel`` per program class, as the JAX
+engine arms them (decode, window decode, kernel decode; batched prefill
+per backend), each over a hot function that records its programs
+(``profiling/sentinels.py: records_programs``), checked after every
+decode step and every prefill. With ``transfer_guard`` the steady-state
+decode (the class steps and the step's host read) runs inside
+``transfer_free()``; the step's reads go through ``device_get``.
+
+Left out (ROADMAP.md): on a mesh, the KV handoff, fault injection, the
+memory-pressure guard and int8 weights.
 """
 
+import contextlib
 import dataclasses
 import os
 import queue as _queue_mod
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -126,6 +136,13 @@ from deepspeed_tpu_torch.inference.quantization import (
     vocab_size,
 )
 from deepspeed_tpu_torch.inference.serving.config import ServingConfig
+from deepspeed_tpu_torch.profiling.sentinels import (
+    CompileSentinel,
+    device_get,
+    records_programs,
+    register_allowed_transfer,
+    transfer_free,
+)
 from deepspeed_tpu_torch.inference.serving.degrade import DegradeLadder
 from deepspeed_tpu_torch.inference.serving.fault_injection import ServingFaultInjector
 from deepspeed_tpu_torch.inference.serving.kv_pool import (
@@ -158,6 +175,12 @@ from deepspeed_tpu_torch.parallel.sharding_registry import (
     create_serving_mesh,
     serving_registry,
 )
+
+
+# the serving loop's host reads: a decode step's tokens (or oracle tokens
+# and accepted counts) and a prefill's first tokens
+_STEP_READ = register_allowed_transfer("serving/step_read")
+_FIRST_TOKEN_READ = register_allowed_transfer("serving/first_token_read")
 
 
 def _submitted_at(age_s):
@@ -247,6 +270,7 @@ def _finish_step(model, h, tokens, positions, active):
             torch.where(active, positions + 1, positions))
 
 
+@records_programs
 def _decode_step_dense(model, pool, page_tables, tokens, positions, active,
                        n_heads, qmode, dtype):
     """Dense decode: per layer, gather each lane's pages into its
@@ -291,6 +315,7 @@ def _page_scales(scale_l, page_tables, n_pages):
     return out
 
 
+@records_programs
 def _decode_step_kernel(model, pool, page_tables, tokens, positions, active,
                         n_heads, qmode, dtype):
     """``pallas_decode`` lanes: per layer write the fresh row into its
@@ -319,6 +344,7 @@ def _decode_step_kernel(model, pool, page_tables, tokens, positions, active,
     return _finish_step(model, h, tokens, positions, active)
 
 
+@records_programs
 def _decode_step_window(model, pool, page_tables, tokens, positions, active,
                         n_heads, qmode, dtype, kernel=True):
     """``pallas_sparse`` lanes: per layer write the fresh row into its
@@ -388,6 +414,7 @@ def _rows_at(stripe, tok):
     return stripe.transpose(1, 2)[lanes, tok.clamp(0, S - 1)]
 
 
+@records_programs(split="lane_class", traced=("positions_host",))
 def _spec_step(model, pool, page_tables, history, tokens, positions, positions_host,
                active, noise, k, n_heads, qmode, dtype, lane_class):
     """One speculative step for one lane class: draft ``k`` tokens a lane
@@ -454,6 +481,7 @@ def _spec_step(model, pool, page_tables, history, tokens, positions, positions_h
     return tokens, positions, oracle, accepted
 
 
+@records_programs(split="attn_impl", traced=("starts", "true_lens"))
 def _prefill_batch(model, init_k, init_v, padded_ids, starts, true_lens,
                    n_heads, attn_impl, page_tokens):
     """Batched prefill: ``padded_ids`` [B, Sb] forwarded in one causal
@@ -519,7 +547,7 @@ class ServingEngine:
 
     def __init__(self, model, model_config, serving_config=None,
                  device="cuda", injector=None, telemetry_config=None, rank=None,
-                 monitor=None):
+                 monitor=None, sentinel_config=None):
         cfg = serving_config or ServingConfig()
         self.device = resolve_device(device)
         if model_device(model) != self.device:
@@ -589,6 +617,7 @@ class ServingEngine:
         else:
             self._qmode = None
         self._spec_k = int(cfg.speculative_k)
+        self._arm_sentinels(sentinel_config, impls)
         # degraded-mode ladder: armed by configure_degrade() or lazily by
         # set_degrade_rung(); _degrade_rung is the hot-path mirror
         self._degrade = None
@@ -697,6 +726,63 @@ class ServingEngine:
                 telemetry_config, tracer=self._tracer, registry=reg)
             if self.slo is not None and self.telemetry_server is not None:
                 self.slo.attach(self.telemetry_server)
+
+    # -- sentinels -------------------------------------------------------
+    def _arm_sentinels(self, sentinel_config, impls):
+        """One CompileSentinel per program class the configured backends
+        run, as the JAX engine arms them: a decode class under
+        speculation is its lane class's programs of ``_spec_step``; a
+        prefill class, its backend's programs of ``_prefill_batch``."""
+        self.decode_sentinel = self.decode_window_sentinel = None
+        self.decode_kernel_sentinel = None
+        self.prefill_sentinels = {}
+        self._transfer_guard = False
+        if sentinel_config is None or not sentinel_config.enabled:
+            return
+        budget = sentinel_config.compile_budget
+        spec = self._spec_k > 0
+        window, kfull, kwin = ("sparse_xla" in impls, "pallas_decode" in impls,
+                               "pallas_sparse" in impls)
+
+        def sentinel(fn, name):
+            return CompileSentinel(fn, budget, name=name)
+
+        self.decode_sentinel = sentinel(
+            _spec_step.view("dense") if spec else _decode_step_dense, "serving decode step")
+        if window or (kwin and not spec):
+            self.decode_window_sentinel = sentinel(
+                _spec_step.view("sparse_xla") if spec else _decode_step_window,
+                "serving window decode step")
+        if kfull or (kwin and spec):
+            self.decode_kernel_sentinel = sentinel(
+                _spec_step.view("pallas_decode", "pallas_sparse") if spec
+                else _decode_step_kernel, "serving kernel decode step")
+        names = {"dense": "serving batched prefill", "sparse_xla": "serving window prefill",
+                 "flash": "serving flash prefill", "pallas_decode": "serving kernel prefill",
+                 "pallas_sparse": "serving kernel window prefill"}
+        for impl in {"dense"} | set(impls):
+            self.prefill_sentinels[impl] = sentinel(_prefill_batch.view(impl), names[impl])
+        self._transfer_guard = bool(sentinel_config.transfer_guard)
+
+    def _guard(self):
+        return transfer_free() if self._transfer_guard else contextlib.nullcontext()
+
+    def _check_decode_sentinels(self):
+        """The budget checks of every armed decode class (the classes
+        share the step, so they share the check)."""
+        for s in (self.decode_sentinel, self.decode_window_sentinel,
+                  self.decode_kernel_sentinel):
+            if s is not None:
+                s.check()
+
+    def _run_prefill(self, model, init_k, init_v, ids, starts, lens, impl):
+        """The batched prefill of one backend, then its sentinel's check."""
+        first = _prefill_batch(model, init_k, init_v, ids, starts, lens, self.local_heads,
+                               impl, self.pool.page_tokens)
+        sentinel = self.prefill_sentinels.get(impl)
+        if sentinel is not None:
+            sentinel.check()
+        return first
 
     # -- tensor-parallel mesh -------------------------------------------
     def _arm_mesh(self, model, cfg, injector):
@@ -877,7 +963,8 @@ class ServingEngine:
         eng = cls(model, model_config, serving_config=serving_cfg,
                   device=device, injector=injector,
                   telemetry_config=ds_config.telemetry_config, rank=rank,
-                  monitor=monitor_from_config(ds_config, rank))
+                  monitor=monitor_from_config(ds_config, rank),
+                  sentinel_config=ds_config.sentinel_config)
         fleet = ds_config.fleet_config
         if fleet.enabled and fleet.degrade.enabled:
             eng.configure_degrade(fleet.degrade)
@@ -889,12 +976,21 @@ class ServingEngine:
         ``DegradeLadder``). Rung 1 turns speculation off (safe mid-flight:
         emitted tokens always come from the verify oracle); rung 2 also
         pauses prefix-cache inserts and halves the admission queue."""
+        # the ladder's gauge lives in the process-global registry, so the
+        # ladder reaches the engine only weakly: a bound method here kept a
+        # dropped engine, its model and its pool on the card for good
+        me = weakref.ref(self)
+
+        def on_change(old, new, reason):
+            eng = me()
+            if eng is not None:
+                eng._on_degrade_change(old, new, reason)
+
         if isinstance(degrade_config, DegradeLadder):
             self._degrade = degrade_config
-            self._degrade._on_change = self._on_degrade_change
+            self._degrade._on_change = on_change
         else:
-            self._degrade = DegradeLadder(degrade_config, on_change=self._on_degrade_change,
-                                          name="engine")
+            self._degrade = DegradeLadder(degrade_config, on_change=on_change, name="engine")
         self._degrade_rung = self._degrade.rung
         self._degrade.export_gauges(telemetry.get_registry())
         return self._degrade
@@ -1197,13 +1293,18 @@ class ServingEngine:
         if self._lane_dirty:
             self._upload_lane_state()
         tokens, positions = self._dev_tokens, self._dev_positions
-        for cls, mask in self._dev_active.items():
-            tokens, positions = _DECODE_STEPS[cls](
-                self.model, self.pool, self._dev_page_tables, tokens,
-                positions, mask, self.local_heads, self._qmode, self.pool.compute_dtype)
+        with self._guard():
+            for cls, mask in self._dev_active.items():
+                tokens, positions = _DECODE_STEPS[cls](
+                    self.model, self.pool, self._dev_page_tables, tokens,
+                    positions, mask, self.local_heads, self._qmode, self.pool.compute_dtype)
+        self._check_decode_sentinels()
+        # on a mesh the broadcast stays outside the guard (gloo stages
+        # device tensors through the host)
         tokens = self._from_lead(tokens)
         self._dev_tokens, self._dev_positions = tokens, positions
-        host_tokens = tokens.cpu().numpy()   # the step's one host read
+        with self._guard():
+            host_tokens = device_get(tokens, _STEP_READ).numpy()   # the step's one host read
         step_s = time.monotonic() - t0
         self._lane_tokens = host_tokens.copy()
         toks = host_tokens.tolist()
@@ -1242,13 +1343,15 @@ class ServingEngine:
         oracle = torch.zeros((self.pool.max_slots, k + 1), dtype=torch.long,
                              device=self.device)
         accepted = torch.zeros(self.pool.max_slots, dtype=torch.long, device=self.device)
-        for cls, mask in self._dev_active.items():
-            tokens, positions, o, a = _spec_step(
-                self.model, self.pool, self._dev_page_tables, self._dev_history,
-                tokens, positions, pos_host, mask, self._dev_noise, k, self.local_heads,
-                self._qmode, self.pool.compute_dtype, cls)
-            oracle = torch.where(mask[:, None], o, oracle)
-            accepted = torch.where(mask, a, accepted)
+        with self._guard():
+            for cls, mask in self._dev_active.items():
+                tokens, positions, o, a = _spec_step(
+                    self.model, self.pool, self._dev_page_tables, self._dev_history,
+                    tokens, positions, pos_host, mask, self._dev_noise, k, self.local_heads,
+                    self._qmode, self.pool.compute_dtype, cls)
+                oracle = torch.where(mask[:, None], o, oracle)
+                accepted = torch.where(mask, a, accepted)
+        self._check_decode_sentinels()
         if self._lockstep:
             # rank 0's verdicts: tokens, positions, oracle, accepted, history
             packed = self._from_lead(torch.cat(
@@ -1258,7 +1361,9 @@ class ServingEngine:
             oracle, accepted = packed[:, 2:k + 3], packed[:, k + 3]
             self._dev_history = packed[:, k + 4:].contiguous()
         self._dev_tokens, self._dev_positions = tokens, positions
-        host = torch.cat([oracle, accepted[:, None]], dim=1).cpu().tolist()   # one read
+        with self._guard():
+            host = device_get(torch.cat([oracle, accepted[:, None]], dim=1),
+                              _STEP_READ).tolist()   # one read
         step_s = time.monotonic() - t0
         acc_total = sum(host[s][k + 1] for s in self._active)
         if span_args is not None:
@@ -1573,11 +1678,10 @@ class ServingEngine:
                 init_k[:, i, :, :reuse] = ek
                 init_v[:, i, :, :reuse] = ev
         t0 = time.monotonic()
-        first = _prefill_batch(
-            self.model, init_k, init_v, torch.as_tensor(ids, device=self.device),
-            starts, lens, self.local_heads, impl, pt)
+        first = self._run_prefill(self.model, init_k, init_v,
+                                  torch.as_tensor(ids, device=self.device), starts, lens, impl)
         first = self._from_lead(first)
-        first_host = first.cpu().tolist()        # sync: the TTFT endpoint
+        first_host = device_get(first, _FIRST_TOKEN_READ).tolist()   # the TTFT endpoint
         self.metrics.record_prefill(tokens=sum(len(r.prompt) - re for r, re, _, _ in plan),
                                     reused_tokens=sum(re for _, re, _, _ in plan),
                                     requests=len(plan), prefill_s=time.monotonic() - t0)
@@ -1653,10 +1757,9 @@ class ServingEngine:
                  if self._tracer.enabled else telemetry.NULL_SPAN)
         t0 = time.monotonic()
         with cspan:
-            first = _prefill_batch(self.model, st.k, st.v,
-                                   torch.as_tensor(ids, device=self.device), [st.pos],
-                                   np.asarray([len(req.prompt)]), self.local_heads, impl,
-                                   self.pool.page_tokens)
+            first = self._run_prefill(self.model, st.k, st.v,
+                                      torch.as_tensor(ids, device=self.device), [st.pos],
+                                      np.asarray([len(req.prompt)]), impl)
             first = self._from_lead(first)
         st.pos += len(chunk)
         stats["prefill_chunks"] += 1
@@ -1664,7 +1767,7 @@ class ServingEngine:
         if st.pos < len(req.prompt):
             st.prefill_s += time.monotonic() - t0
             return
-        first_tok = int(first[0])                  # sync: the TTFT endpoint
+        first_tok = int(device_get(first, _FIRST_TOKEN_READ)[0])   # the TTFT endpoint
         st.prefill_s += time.monotonic() - t0
         now = time.monotonic()
         self.metrics.record_prefill(tokens=len(req.prompt) - st.reuse,

@@ -110,6 +110,14 @@ def _decode_attend_torch(q, pages_k, pages_v, tables, qpos, pt, dtype,
     return torch.stack(out)
 
 
+def decode_attend_flops(q, tables, pt):
+    """The matrix-product FLOPs of the plain version on these inputs: for
+    every lane and every page of its table, the QK and PV products of
+    the lane's query tiles (C rounded up to ``_QTILE``)."""
+    B, C, nh, hd = q.shape
+    return 4 * B * tables.shape[1] * (-(-C // _QTILE) * _QTILE) * nh * int(pt) * hd
+
+
 def split_plan(pt, mp):
     """How the kernel cuts a lane's ``mp`` pages of ``pt`` tokens across
     blocks: ``(pages per split, number of splits)``. A split is as many
@@ -211,6 +219,8 @@ def _decode_attend_cuda(q, pages_k, pages_v, tables, qpos, pt, dtype,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode_attention")
     registry.record_launch("decode_attention")
+    if registry.counting_flops():
+        registry.note_flops("decode_attention", q, decode_attend_flops(q, tables, pt))
     return out
 
 

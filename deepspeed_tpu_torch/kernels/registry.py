@@ -11,7 +11,17 @@ nowhere else), so a run can show that its main path went through the
 kernels. The host kernels (``csrc/cpu_adam.cpp``, the Adam of
 ZeRO-Offload, and the four host ops of ``csrc/host_ops.cpp``, built with
 ``g++``) are counted apart from the CUDA kernels (``host_launch_counts``).
+
+Under a counting mode (the FLOPS profiler's ``FlopCounterMode``) each CUDA
+wrapper also reports its kernel's FLOPs (``note_flops``), which the
+counter cannot see in a ``ctypes`` launch: the count its plain version
+gives on the same inputs.
 """
+
+import torch
+from torch.utils import flop_counter
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+from torch.utils.flop_counter import register_flop_formula
 
 KERNEL_NAMES = ("decode_attention", "sparse_attention", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
@@ -60,6 +70,40 @@ def record_launch(name):
     the launch)."""
     counts = _host_launches if name in _host_launches else _launches
     counts[name] += 1
+
+
+@torch.library.custom_op("dstorch::kernel_flops", mutates_args=())
+def _kernel_flops(anchor: torch.Tensor, kernel: str, flops: int) -> None:
+    """A no-op whose FLOP formula is the count it is handed. Registered at
+    import: a ``FlopCounterMode`` copies the formulas when it is made, so
+    one made before the registration would count nothing here."""
+    return None
+
+
+@register_flop_formula(torch.ops.dstorch.kernel_flops)
+def _kernel_flops_formula(anchor_shape, kernel, flops, *args, **kwargs):
+    return flops
+
+
+# the mode a FlopCounterMode pushes on the dispatch stack (the counter
+# itself in older releases, a private mode it owns in newer ones)
+_COUNTING_MODES = (flop_counter.FlopCounterMode,
+                   getattr(flop_counter, "_FlopCounterMode", flop_counter.FlopCounterMode))
+
+
+def counting_flops():
+    """True under a ``FlopCounterMode`` alone: only then does a wrapper
+    report its kernel's FLOPs. Other dispatch modes (selective
+    checkpointing's, around every layer of a checkpointed step) do not
+    count."""
+    return (torch._C._len_torch_dispatch_stack() > 0
+            and any(isinstance(m, _COUNTING_MODES) for m in _get_current_dispatch_mode_stack()))
+
+
+def note_flops(name, anchor, flops):
+    """Report ``flops`` of kernel ``name`` (launched on ``anchor``'s card) to
+    the counting mode, attributed to the modules the launch ran under."""
+    torch.ops.dstorch.kernel_flops(anchor, name, int(flops))
 
 
 def launch_counts():

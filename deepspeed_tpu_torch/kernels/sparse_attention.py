@@ -86,6 +86,13 @@ def _band_attend_torch(q, k_win, v_win, k_sink, v_sink, pos, base, dtype):
                       sink_valid[:, None], dtype)
 
 
+def band_attend_flops(q, k_win, k_sink):
+    """The matrix-product FLOPs of the plain version on these inputs: each
+    query's scores over its window and sink keys and its PV sum."""
+    N, nh, hd = q.shape
+    return 4 * N * nh * hd * (k_win.shape[2] + k_sink.shape[2])
+
+
 def check_dtypes(q_dtype, dtype):
     """Refuse the types the kernel has no routine for: fp32, bf16 or fp16,
     the output in the query's type (the keys and values must share it)."""
@@ -135,6 +142,8 @@ def _band_attend_cuda(q, k_win, v_win, k_sink, v_sink, pos, base, dtype):
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "sparse_attention")
     registry.record_launch("sparse_attention")
+    if registry.counting_flops():
+        registry.note_flops("sparse_attention", q, band_attend_flops(q, k_win, k_sink))
     return out
 
 

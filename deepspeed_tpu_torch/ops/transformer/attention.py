@@ -85,12 +85,17 @@ _DEVICE_LUTS = {}
 
 def _device_luts(layout, H, S, block, device):
     """``_luts_for`` as int32 tensors on ``device``, cached per layout, so
-    a training step copies no LUT to the card."""
+    a training step copies no LUT to the card. Each counts tensor carries
+    its block steps (``lut_steps``, taken here from the host copy), so a
+    FLOP count reads nothing from the card."""
     arr = None if layout is None else np.ascontiguousarray(layout, np.int64)
     key = (None if arr is None else (arr.shape, arr.tobytes()), H, S, block, str(device))
     if key not in _DEVICE_LUTS:
-        _DEVICE_LUTS[key] = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                                  for t in _luts_for(arr, H, S, block))
+        host = _luts_for(arr, H, S, block)
+        luts = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in host)
+        for counts, host_counts in zip(luts[1::2], host[1::2]):
+            counts.lut_steps = int(np.asarray(host_counts).max(0).sum())
+        _DEVICE_LUTS[key] = luts
     return _DEVICE_LUTS[key]
 
 
@@ -345,6 +350,45 @@ def _flash_bwd_dkv_torch(q, k, v, bias, do, lse, delta, qlut, qcounts, block, ca
 
 
 # ---------------------------------------------------------------------------
+# FLOP counts: what FlopCounterMode reads for each plain version (its matrix
+# products), which the kernels report under a counting mode
+# ---------------------------------------------------------------------------
+
+def _lut_steps(counts):
+    """The block steps the plain versions take over a LUT: for each row, the
+    largest count over the heads (every head's products run for as long as
+    any head of the row has a block left). Counts on the card carry it from
+    ``_device_luts``; a count never waits for the card."""
+    if counts.device.type == "cpu":
+        return int(counts.max(0).values.sum())
+    steps = getattr(counts, "lut_steps", None)
+    if steps is None:
+        raise ValueError("the LUT's counts carry no block steps: build them with _device_luts")
+    return steps
+
+
+def _block_flops(q, block):
+    B, H, S, D = q.shape
+    return 2 * B * H * block * block * D
+
+
+def flash_fwd_flops(q, counts, block):
+    """Scores and PV: two products a block step."""
+    return 2 * _block_flops(q, block) * _lut_steps(counts)
+
+
+def flash_bwd_dq_flops(q, counts, block):
+    """The recomputed scores, dO V^T and ds K: three products a block step."""
+    return 3 * _block_flops(q, block) * _lut_steps(counts)
+
+
+def flash_bwd_dkv_flops(q, qcounts, block):
+    """The recomputed scores, dO V^T, P^T dO and ds^T Q: four products a
+    block step of the transposed LUT."""
+    return 4 * _block_flops(q, block) * _lut_steps(qcounts)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers: CUDA tensors launch the kernel, CPU tensors run the plain
 # version
 # ---------------------------------------------------------------------------
@@ -406,6 +450,8 @@ def flash_fwd(q, k, v, bias, lut, counts, *, block, causal, rate=0.0, seed=0, rn
             _stream(q.device))
     build.check(rc, "flash_attention_fwd")
     registry.record_launch("flash_attention_fwd")
+    if registry.counting_flops():
+        registry.note_flops("flash_attention_fwd", q, flash_fwd_flops(q, counts, block))
     return out, lse
 
 
@@ -431,6 +477,8 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, lut, counts, *, block, causal,
             *_dropout_args(rate, seed, rng, H), _stream(q.device))
     build.check(rc, "flash_attention_bwd_dq")
     registry.record_launch("flash_attention_bwd_dq")
+    if registry.counting_flops():
+        registry.note_flops("flash_attention_bwd_dq", q, flash_bwd_dq_flops(q, counts, block))
     return dq
 
 
@@ -457,6 +505,9 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, qlut, qcounts, *, block, causal
             *_dropout_args(rate, seed, rng, H), _stream(q.device))
     build.check(rc, "flash_attention_bwd_dkv")
     registry.record_launch("flash_attention_bwd_dkv")
+    if registry.counting_flops():
+        registry.note_flops("flash_attention_bwd_dkv", q,
+                            flash_bwd_dkv_flops(q, qcounts, block))
     return dk, dv, db
 
 

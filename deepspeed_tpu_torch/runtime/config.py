@@ -282,6 +282,17 @@ from deepspeed_tpu_torch.runtime.constants import (
     CSV_MONITOR,
     MEMORY_BREAKDOWN,
     MEMORY_BREAKDOWN_DEFAULT,
+    ALLREDUCE_ALWAYS_FP32,
+    ALLREDUCE_ALWAYS_FP32_DEFAULT,
+    AMP,
+    AMP_ENABLED,
+    AMP_ENABLED_DEFAULT,
+    DISABLE_ALLGATHER,
+    DISABLE_ALLGATHER_DEFAULT,
+    DUMP_STATE,
+    DUMP_STATE_DEFAULT,
+    LEGACY_FUSION,
+    LEGACY_FUSION_DEFAULT,
     TENSORBOARD,
     TENSORBOARD_ENABLED,
     TENSORBOARD_ENABLED_DEFAULT,
@@ -355,6 +366,10 @@ from deepspeed_tpu_torch.runtime.constants import (
     PARALLEL_PARTITION_RULES_DEFAULT,
     PARALLEL_REPLICATE_UNMATCHED,
     PARALLEL_REPLICATE_UNMATCHED_DEFAULT,
+)
+from deepspeed_tpu_torch.profiling.config import (
+    DeepSpeedFlopsProfilerConfig,
+    DeepSpeedSentinelConfig,
 )
 from deepspeed_tpu_torch.runtime.resilience.config import ResilienceConfig
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
@@ -474,6 +489,26 @@ def get_optimizer_name(param_dict):
     if OPTIMIZER in param_dict and TYPE in param_dict[OPTIMIZER]:
         return param_dict[OPTIMIZER][TYPE]
     return None
+
+
+def get_optimizer_legacy_fusion(param_dict):
+    if OPTIMIZER in param_dict and LEGACY_FUSION in param_dict[OPTIMIZER]:
+        return param_dict[OPTIMIZER][LEGACY_FUSION]
+    return LEGACY_FUSION_DEFAULT
+
+
+def get_amp_enabled(param_dict):
+    if AMP in param_dict:
+        return get_scalar_param(param_dict[AMP], AMP_ENABLED, AMP_ENABLED_DEFAULT)
+    return False
+
+
+def get_amp_params(param_dict):
+    if AMP in param_dict:
+        amp_params = dict(param_dict[AMP])
+        amp_params.pop(AMP_ENABLED, None)
+        return amp_params
+    return False
 
 
 def get_optimizer_params(param_dict):
@@ -1557,6 +1592,11 @@ class DeepSpeedConfig:
         self.steps_per_print = get_scalar_param(param_dict, STEPS_PER_PRINT,
                                                 STEPS_PER_PRINT_DEFAULT)
         self.seed = get_scalar_param(param_dict, SEED, SEED_DEFAULT)
+        self.dump_state = get_scalar_param(param_dict, DUMP_STATE, DUMP_STATE_DEFAULT)
+        self.disable_allgather = get_scalar_param(param_dict, DISABLE_ALLGATHER,
+                                                  DISABLE_ALLGATHER_DEFAULT)
+        self.allreduce_always_fp32 = get_scalar_param(param_dict, ALLREDUCE_ALWAYS_FP32,
+                                                      ALLREDUCE_ALWAYS_FP32_DEFAULT)
         self.wall_clock_breakdown = get_wall_clock_breakdown(param_dict)
         self.memory_breakdown = get_memory_breakdown(param_dict)
         self.tensorboard_enabled = get_tensorboard_enabled(param_dict)
@@ -1576,9 +1616,13 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_optimization_stage > ZERO_OPTIMIZATION_DISABLED
         self.activation_checkpointing_config = DeepSpeedActivationCheckpointingConfig(
             param_dict)
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(param_dict)
+        self.sentinel_config = DeepSpeedSentinelConfig(param_dict)
 
         self.fp16_enabled = get_fp16_enabled(param_dict)
         self.bfloat16_enabled = get_bfloat16_enabled(param_dict)
+        self.amp_enabled = get_amp_enabled(param_dict)
+        self.amp_params = get_amp_params(param_dict)
         self.loss_scale = get_loss_scale(param_dict)
         self.initial_dynamic_scale = get_initial_dynamic_scale(param_dict)
         self.dynamic_loss_scale_args = get_dynamic_loss_scale_args(param_dict)
@@ -1589,6 +1633,7 @@ class DeepSpeedConfig:
         if self.optimizer_name is not None and self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
         self.optimizer_params = get_optimizer_params(param_dict)
+        self.optimizer_legacy_fusion = get_optimizer_legacy_fusion(param_dict)
 
         self.scheduler_name = get_scheduler_name(param_dict)
         self.scheduler_params = get_scheduler_params(param_dict)

@@ -45,6 +45,20 @@ BFLOAT16_ENABLED = "enabled"
 
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
+# keys the JAX config parses and no engine of either package acts on
+# beyond its accessor
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+DISABLE_ALLGATHER = "disable_allgather"
+DISABLE_ALLGATHER_DEFAULT = False
+ALLREDUCE_ALWAYS_FP32 = "allreduce_always_fp32"
+ALLREDUCE_ALWAYS_FP32_DEFAULT = False
+LEGACY_FUSION = "legacy_fusion"
+LEGACY_FUSION_DEFAULT = False
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+
 PRESCALE_GRADIENTS = "prescale_gradients"
 PRESCALE_GRADIENTS_DEFAULT = False
 GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
@@ -384,7 +398,5 @@ PARALLEL_REPLICATE_UNMATCHED = "replicate_unmatched"
 PARALLEL_REPLICATE_UNMATCHED_DEFAULT = True
 
 # sections and switches of the JAX config the port does not run yet: a
-# config that enables one is refused by name (flops_profiler and sentinel:
-# ROADMAP.md slice 9b; amp, curriculum_learning and sparse_gradients: 9c)
-UNPORTED_SECTIONS = ("flops_profiler", "amp", "curriculum_learning", "sentinel",
-                     "sparse_gradients")
+# config that enables one is refused by name (ROADMAP.md slice 9c)
+UNPORTED_SECTIONS = ("curriculum_learning", "sparse_gradients")

@@ -37,6 +37,18 @@ Port of ``deepspeed_tpu/runtime/engine.py`` for the path
   ``wall_clock_breakdown`` the forward / backward / step microstep timers
   (each waits for the card) are logged every ``steps_per_print`` steps,
   with the card's allocated and peak memory under ``memory_breakdown``;
+- the FLOPS profiler (``flops_profiler``): at ``profile_step`` the first
+  microbatch's forward through backward is timed with the card
+  synchronised at both ends, then counted in a separate pass under
+  ``FlopCounterMode`` (its random streams put back, its gradients
+  dropped), the report printed and ``Train/Samples/model_tflops`` and
+  ``mfu`` recorded; the fused ``train_step`` refuses an armed profiler,
+  and ``train_batch`` then runs the three calls;
+- the sentinels (``jax_sentinels``): ``train_step`` records its programs
+  (distinct microbatch signatures) under a ``CompileSentinel`` budget, and
+  with ``transfer_guard`` its forward, backward and update run inside
+  ``transfer_free()`` (the fp16 overflow verdict is read through the
+  sanctioned ``device_get``);
 - one explicit step ``torch.Generator`` seeded from the config ``seed``
   (default 42) hands every microbatch one integer dropout seed;
 - ``initialize`` starts the ``torch.distributed`` group from the
@@ -78,11 +90,13 @@ Port of ``deepspeed_tpu/runtime/engine.py`` for the path
   commit barrier is deadline-bounded (``resilience.comm_timeout_s``).
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import inspect
 import io
 import os
+import time
 import weakref
 
 import torch
@@ -101,6 +115,14 @@ from deepspeed_tpu_torch.parallel.expert import MoELayer
 from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, create_mesh
 from deepspeed_tpu_torch.parallel.tp import local_part, whole_of
 from deepspeed_tpu_torch.monitor import monitor_from_config
+from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+from deepspeed_tpu_torch.profiling.sentinels import (
+    CompileSentinel,
+    device_get,
+    records_programs,
+    register_allowed_transfer,
+    transfer_free,
+)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
     checkpoint_call,
@@ -138,6 +160,8 @@ from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer, Throughp
 from deepspeed_tpu_torch.version import __version__
 
 ROUTE_TRAIN = "train"
+# the fp16 step's one host read: the overflow verdict
+_OVERFLOW_READ = register_allowed_transfer("train/overflow_read")
 ZERO_SUPPORTED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER]
 _NULL_SPAN = telemetry.NULL_SPAN
 # the keys of a tag's module file that are the engine's own; the rest is
@@ -567,6 +591,8 @@ class DeepSpeedEngine:
         self._pld_gen = torch.Generator().manual_seed(int(self._config.seed) ^ 0x1D)
         self.last_grad_norm = None
         self._last_overflow = False
+        me = weakref.proxy(self)
+        self._configure_profiling(me)
         self._configure_telemetry()
         # the monitors, after the telemetry block so that the registry's
         # bridge rides along when it is armed; the step's mean loss is kept
@@ -578,7 +604,6 @@ class DeepSpeedEngine:
         # both reach the engine through a weak proxy: the engine owns them,
         # and a reference cycle would keep a dropped engine's device memory
         # until the next garbage collection
-        me = weakref.proxy(self)
         # step-level resilience: divergence guard, watchdog and rollback
         # recovery (None without a `resilience` block)
         self.resilience = ResilienceSupervisor.from_ds_config(self._config, me)
@@ -589,6 +614,29 @@ class DeepSpeedEngine:
         # thread, and a supervised step may run on a watchdog thread.
         self._cluster = ClusterHooks(me)
         self._config.print("DeepSpeedEngine configuration")
+
+    def _configure_profiling(self, me):
+        """The FLOPS profiler and the sentinels. ``train_step`` records its
+        programs through a closure over the weak proxy ``me``, so the
+        recorder holds no reference cycle to the engine."""
+        self.flops_profiler = FlopsProfiler() if self._config.flops_profiler_config.enabled \
+            else None
+        self._profile_batch = None
+        self._flops_gauges = None
+        self.last_profile = None        # the profiled microbatch's numbers and report
+
+        def train_step(microbatches):
+            return me._fused_train_step(microbatches)
+
+        self._train_step_programs = records_programs(train_step)
+        sent = self._config.sentinel_config
+        self._train_step_sentinel = (
+            CompileSentinel(self._train_step_programs, sent.compile_budget,
+                            name="fused train_step") if sent.enabled else None)
+        self._transfer_guard = bool(sent.enabled and sent.transfer_guard)
+        if self._transfer_guard and self.wall_clock_breakdown():
+            raise ValueError("jax_sentinels.transfer_guard with wall_clock_breakdown: the "
+                             "breakdown's timers wait for the card inside the guarded step")
 
     def _configure_experts(self, client_optimizer):
         """{parameter name: its expert group} of the expert-parallel
@@ -726,6 +774,12 @@ class DeepSpeedEngine:
 
     def gradient_clipping(self):
         return self._config.gradient_clipping
+
+    def allreduce_always_fp32(self):
+        return self._config.allreduce_always_fp32
+
+    def optimizer_legacy_fusion(self):
+        return self._config.optimizer_legacy_fusion
 
     def postscale_gradients(self):
         return not self._config.prescale_gradients
@@ -1049,7 +1103,8 @@ class DeepSpeedEngine:
         overflow verdict as a host bool."""
         opt = self._step_optimizer
         grads = self.allreduce_gradients()
-        overflow = self.fp16_enabled() and bool(opt.has_overflow(grads))
+        overflow = self.fp16_enabled() and bool(device_get(opt.has_overflow(grads),
+                                                           _OVERFLOW_READ))
         if overflow:
             gnorm = torch.tensor(-1.0, device=self.device)
         else:
@@ -1095,13 +1150,19 @@ class DeepSpeedEngine:
         ``Train/comm_overlap_frac`` where the optimizer has
         ``overlap_comm``, ``Train/offload_overlap_frac`` under
         ZeRO-Offload, and the microstep timers under
-        ``wall_clock_breakdown``. Values may be device tensors: the
-        monitor reads them on the host only at its flush.
-        (``Train/Samples/model_tflops`` and ``mfu`` come with the FLOPS
-        profiler, ROADMAP.md slice 9b.)"""
+        ``wall_clock_breakdown``, and after the profiled step of the FLOPS
+        profiler ``Train/Samples/model_tflops`` (and ``mfu`` where the
+        card's peak is known). Values may be device tensors: the monitor
+        reads them on the host only at its flush."""
+        gauges, self._flops_gauges = self._flops_gauges, None
         if self.monitor is None:
             return
         samples = self.global_samples
+        if gauges is not None:
+            achieved, mfu = gauges
+            self.monitor.record("Train/Samples/model_tflops", achieved, samples)
+            if mfu is not None:
+                self.monitor.record("Train/Samples/mfu", mfu, samples)
         if self._loss_sum is not None:
             self.monitor.record("Train/Samples/train_loss",
                                 self._loss_sum / self.gradient_accumulation_steps(), samples)
@@ -1191,13 +1252,19 @@ class DeepSpeedEngine:
     def forward(self, *inputs):
         """The loss of one microbatch. In training mode the loss carries
         the autograd graph for ``backward``; in eval mode it is computed
-        without grad and deterministically."""
+        without grad and deterministically. At the FLOPS profiler's
+        ``profile_step`` the first microbatch's forward through backward
+        is the profiled window."""
         self._start_timers("forward")
         batch = self._batch(inputs)
         if not self.training:
             with torch.no_grad():
                 loss = self._loss(batch, deterministic=True)
         else:
+            if self._profiles_now():
+                self._sync()
+                self.flops_profiler.start_profile()
+                self._profile_batch = batch
             with (self._tracer.span("train/forward_backward", cat="train",
                                     args={"step": self.global_steps})
                   if self._tracer.enabled else _NULL_SPAN):
@@ -1223,7 +1290,65 @@ class DeepSpeedEngine:
                               else self._loss_sum + self._last_loss)
         self.micro_steps += 1
         self._stop_timers("backward")
+        if self._profile_batch is not None:
+            self._finish_profile()
         return loss
+
+    # ------------------------------------------------------------------
+    # the FLOPS profiler
+    # ------------------------------------------------------------------
+    def _profiles_now(self):
+        return (self.flops_profiler is not None
+                and self.global_steps == self._config.flops_profiler_config.profile_step
+                and self.micro_steps % self.gradient_accumulation_steps() == 0)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _finish_profile(self):
+        """Close the profiled window (forward through backward, the card
+        synchronised), then count the microbatch in a pass of its own: its
+        forward and backward under the counting mode, with both random
+        streams put back after it and its gradients dropped (the module's
+        ``.grad`` is empty between microbatches, and ZeRO's gradient hooks
+        are paused), so training runs on as if unprofiled. The numbers, the
+        count pass's host time and the report are kept in ``last_profile``."""
+        prof = self.flops_profiler
+        self._sync()
+        prof.stop_profile()
+        batch, self._profile_batch = self._profile_batch, None
+        t0 = time.perf_counter()
+        streams = (self._step_gen.get_state(), self._pld_gen.get_state())
+        hooked = self._grads_in_hooks
+        if hooked:
+            self.optimizer.hooks_paused = True
+        try:
+            prof.count_step(lambda: self._scaled(self._loss(batch)),
+                            lambda loss: loss.backward(), params=self.module)
+        finally:
+            for p in self._params:
+                p.grad = None
+            if hooked:
+                self.optimizer.hooks_paused = False
+            self._step_gen.set_state(streams[0])
+            self._pld_gen.set_state(streams[1])
+        self._sync()
+        count_s = time.perf_counter() - t0
+        prof.set_params(self.module)
+        cfg = self._config.flops_profiler_config
+        report = prof.print_model_profile(profile_step=self.global_steps,
+                                          module_depth=cfg.module_depth,
+                                          top_modules=cfg.top_modules, detailed=cfg.detailed) \
+            if self.global_rank == 0 else None
+        achieved = prof.achieved_tflops()
+        if achieved is not None:
+            # recorded by the step's _monitor_step
+            self._flops_gauges = (achieved, prof.mfu())
+        self.last_profile = {"flops": prof.flops, "duration_s": prof.duration,
+                             "model_tflops": achieved, "mfu": prof.mfu(),
+                             "count_s": count_s, "report": report}
+        prof.end_profile()
 
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
@@ -1253,19 +1378,33 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # fused step
     # ------------------------------------------------------------------
+    def _can_fuse_train_step(self):
+        return self.flops_profiler is None
+
     def train_step(self, microbatches):
         """One optimizer step over ``gradient_accumulation_steps``
         microbatches (each a tuple of batch tensors). Returns the mean
         (unscaled) loss as a device scalar: nothing here waits for the
-        card but, under fp16, the overflow check."""
+        card but, under fp16, the overflow check. Each distinct signature
+        of the microbatches is one program of ``_train_step_programs``,
+        budgeted under ``jax_sentinels``."""
+        assert self._can_fuse_train_step(), (
+            "fused train_step unavailable for this config (profiling uses "
+            "forward/backward/step)")
+        if self._train_step_sentinel is not None:
+            return self._train_step_sentinel(microbatches)
+        return self._train_step_programs(microbatches)
+
+    def _fused_train_step(self, microbatches):
         gas = self.gradient_accumulation_steps()
         micro = [self._batch(mb) for mb in microbatches]
         assert len(micro) == gas, f"need {gas} microbatches, got {len(micro)}"
         self.tput_timer.start(sync=False)
         losses = []
+        guard = transfer_free() if self._transfer_guard else contextlib.nullcontext()
         with (self._tracer.span("train/fwd_bwd_opt_step", cat="train",
                                 args={"step": self.global_steps, "gas": gas})
-              if self._tracer.enabled else _NULL_SPAN):
+              if self._tracer.enabled else _NULL_SPAN), guard:
             for batch in micro:
                 self._start_timers("forward")
                 loss = self._loss(batch)
@@ -1331,8 +1470,18 @@ class DeepSpeedEngine:
         """One optimizer step over already-fetched microbatches (the
         unsupervised core of ``train_batch``); returns the mean loss as a
         host float. The resilience supervisor retries and replays it, so it
-        reads only its arguments and the engine's state."""
-        loss = self.train_step(micro)
+        reads only its arguments and the engine's state. With an armed
+        FLOPS profiler the step runs the three calls."""
+        if self._can_fuse_train_step():
+            loss = self.train_step(micro)
+        else:
+            losses = []
+            for mb in micro:
+                loss = self.forward(*(mb if isinstance(mb, (tuple, list)) else (mb,)))
+                self.backward(loss)
+                losses.append(loss.detach())
+                self.step()
+            loss = torch.stack(losses).mean()
         # the step's one deliberate wait for the card: the mean loss
         with (self._tracer.span("train/loss_sync", cat="train",
                                 args={"step": self.global_steps})

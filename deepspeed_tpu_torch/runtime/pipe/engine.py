@@ -255,6 +255,14 @@ class PipelineEngine:
                      "its compiled executor only; the interpreter keeps each stage's "
                      "activations as it does without it", ranks=[0])
 
+        # engine-only config sections must not silently no-op here
+        if self._config.flops_profiler_config.enabled:
+            logger.warning(
+                "flops_profiler per-module attribution is not implemented "
+                "for PipelineEngine (it works on DeepSpeedEngine's forward "
+                "graph) — flops totals are skipped; per-stage wall-time "
+                "gauges (Train/Pipe/stage*_time_ms) are exported through "
+                "the monitor instead")
         if self._config.prescale_gradients or self._config.gradient_predivide_factor != 1.0:
             logger.warning("prescale_gradients/gradient_predivide_factor are applied by the "
                            "DeepSpeedEngine path; ignored under PipelineEngine")

@@ -34,6 +34,8 @@ from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.ops.utils_op import flatten_dense_tensors, unflatten_dense_tensors
 from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from deepspeed_tpu_torch.parallel.tp import local_part, whole_of
+from deepspeed_tpu_torch.profiling.sentinels import device_get, device_put
+from deepspeed_tpu_torch.runtime.zero.sharded_optimizer import OFFLOAD_D2H, OFFLOAD_H2D
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -145,7 +147,10 @@ class ZeroPytreeOptimizer:
                 p.data.copy_(full.to(p.dtype))
 
     def _update_host(self, grads, lr):
-        flat = flatten_dense_tensors([g.float() for g in grads]).cpu()
+        """The host step under TP: the rank's gradients down and its
+        masters up through the offload's two named transfer windows (the
+        sanctioned pinned copies, which a transfer guard lets through)."""
+        flat = device_get(flatten_dense_tensors([g.float() for g in grads]), OFFLOAD_D2H)
         n = flat.shape[0]
         k = self.offload_stream_buckets
         for b in range(k):
@@ -153,7 +158,7 @@ class ZeroPytreeOptimizer:
             self.inner.step_host(self._host_master, flat, lr=lr, lo=lo, hi=hi,
                                  advance_step=(b == 0))
         dev = self.master[0].device
-        values = unflatten_dense_tensors(self._host_master.to(dev),
+        values = unflatten_dense_tensors(device_put(self._host_master, dev, OFFLOAD_H2D),
                                          [tuple(m.shape) for m in self.master])
         torch._foreach_copy_(self.master, values)
 

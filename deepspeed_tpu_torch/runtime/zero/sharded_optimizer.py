@@ -29,7 +29,11 @@ parameter starting at a multiple of ``ALIGN`` elements, zeros between):
   and steps them with the host Adam kernel (``DeepSpeedCPUAdam``):
   gradients go D2H into pinned buffers on a side stream, and the updated
   parameters go H2D on another, sequentially or streamed a bucket at a
-  time through two worker threads (``offload_stream_buckets`` >= 2);
+  time through two worker threads (``offload_stream_buckets`` >= 2). The
+  copies run inside the named transfer windows ``zero/offload_d2h`` and
+  ``zero/offload_h2d``, and are made of what a transfer guard
+  (``profiling/sentinels.py: transfer_free``) lets through on any thread:
+  ``non_blocking`` copies, events and ``Event.synchronize``;
 - ``shard_state_dict`` saves this rank's slice of the master and the
   optimizer state as its checkpoint shard (unpadded, with ``rank``,
   ``dp_world_size`` and ``numel``; a rank holds only its own slice, so
@@ -50,9 +54,14 @@ import torch
 
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.ops.utils_op import flat_offsets, unflatten_dense_tensors
+from deepspeed_tpu_torch.profiling.sentinels import allowed_transfer, register_allowed_transfer
 from deepspeed_tpu_torch.runtime.utils import global_norm, has_overflow
 from deepspeed_tpu_torch.utils.distributed import group_rank_and_size
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+# ZeRO-Offload's paging traffic: the only transfers a guarded step allows it
+OFFLOAD_D2H = register_allowed_transfer("zero/offload_d2h")
+OFFLOAD_H2D = register_allowed_transfer("zero/offload_h2d")
 
 # the reference default; non-default bucket sizes that do nothing are logged
 DEFAULT_BUCKET_SIZE = 500000000
@@ -350,6 +359,7 @@ class ZeroShardedOptimizer:
         ``factor``) and all-reduce a bucket as soon as its last gradient is
         in. Returns True when the hooks took over the engine's
         accumulation."""
+        self.hooks_paused = False
         if not (self.overlap_comm and self._group):
             return False
         self._landed = [0] * len(self._buckets)
@@ -360,6 +370,8 @@ class ZeroShardedOptimizer:
 
         def hook(i):
             def fn(p):
+                if self.hooks_paused:
+                    return          # a FLOPS count pass: its gradients are dropped
                 with torch.no_grad():
                     self.acc_grads[i].add_(p.grad, alpha=factor)
                 p.grad = None
@@ -647,7 +659,7 @@ class ZeroShardedOptimizer:
         the D2H stream; returns (start event, end event, host seconds)."""
         t0 = time.perf_counter()
         start = self._d2h.event()
-        with self._d2h.context():
+        with allowed_transfer(OFFLOAD_D2H), self._d2h.context():
             slot[:hi - lo].copy_(self._acc_flat[lo:hi], non_blocking=True)
         return start, self._d2h.event(), time.perf_counter() - t0
 
@@ -656,7 +668,7 @@ class ZeroShardedOptimizer:
         host tensor ``src`` (of the compute dtype) on the H2D stream."""
         t0 = time.perf_counter()
         start = self._h2d.event()
-        with self._h2d.context():
+        with allowed_transfer(OFFLOAD_H2D), self._h2d.context():
             self._flat_param[lo:hi].copy_(src, non_blocking=True)
         return start, self._h2d.event(), time.perf_counter() - t0
 

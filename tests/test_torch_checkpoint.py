@@ -309,8 +309,8 @@ def test_initialize_accepts_the_sections_and_refuses_resilience():
     # the resilience block is ported since slice 5b (the pipeline section
     # since slice 8a); a section that is not yet is still refused by name
     assert _engine(_config(resilience={"enabled": True})).resilience is not None
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        _engine(_config(sentinel={"enabled": True}))
+    with pytest.raises(NotImplementedError, match="curriculum_learning"):
+        _engine(_config(curriculum_learning={"enabled": True}))
 
 
 # ---------------------------------------------------------------------------

@@ -285,11 +285,12 @@ def test_config_errors_match_jax(tmp_path):
 
 @pytest.mark.parametrize("section", [
     {"curriculum_learning": {"enabled": True}},
-    {"sentinel": {"enabled": True}},
-    {"flops_profiler": {"enabled": True, "profile_step": 2}},
-    {"sentinel": {"enabled": True, "max_recompiles": 2}},
-    {"flops_profiler": {"enabled": True}},
-    {"amp": {"enabled": True}}, {"sparse_gradients": True},
+    {"curriculum_learning": {"enabled": True}, "jax_sentinels": {"enabled": True}},
+    {"flops_profiler": {"enabled": True, "profile_step": 2}, "sparse_gradients": True},
+    {"curriculum_learning": {"enabled": True, "curriculum_type": "seqlen"}},
+    {"flops_profiler": {"enabled": True}, "curriculum_learning": {"enabled": True}},
+    {"amp": {"enabled": True}, "sparse_gradients": {"enabled": True}},
+    {"sparse_gradients": True},
 ])
 def test_config_refuses_sections_not_ported(section):
     with pytest.raises(NotImplementedError, match="not ported"):
